@@ -6,21 +6,36 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc/`` and then runs three phases; any failure exits non-zero.
+csrc/`` (one nvcc per source, all started together) and then runs five
+phases; any failure exits non-zero.
 
 1. Each kernel against its plain PyTorch version on the card, in bf16 and
-   fp32, at the full-width qwen2.5-3b shapes of the serving path plus edge
-   cases (ragged S, a window, deep GQA, decode lengths 0, 1 and > S), with
-   the tolerances of tests/test_kernels.py (fp32 2e-5, bf16 5e-2). It
-   times each kernel, its plain version and one PyTorch library call for
-   the same function (never called by the port) as a yardstick.
-2. The main path at full width: the port's seeded init of the unreduced
-   qwen2.5-3b (36 layers, bf16) registered in a ``HydraRuntime`` (slots
-   4, max_seq 1024), one ``generate`` per prompt, then six requests
+   fp32, at the full-width shapes of the serving paths plus edge cases,
+   with the tolerances of tests/test_kernels.py (fp32 2e-5, bf16 5e-2,
+   the SSD final state 1e-3): rmsnorm; flash and decode attention at
+   qwen2.5-3b's and zamba2-2.7b's (head dim 80) shapes, ragged S, a
+   window, deep GQA, decode lengths 0, 1 and > S; ssd_scan at zamba2's
+   and mamba2's 500-token prefill (chunk 256), the tests' sweep (ragged
+   S, an init state, chunk 8), S < 8, B = 2 and the served column-slice
+   layout. It times each kernel, its plain version and, where one exists,
+   one PyTorch library call for the same function (never called by the
+   port) as a yardstick.
+2. qwen2.5-3b (dense) at full width: the port's seeded init (36 layers,
+   bf16) registered in a ``HydraRuntime`` (slots 4, max_seq 1024), one
+   ``generate`` per prompt (128 and 500 tokens), then six requests
    through one ``ContinuousBatcher``. Batched tokens must equal the
-   single-path tokens, every kernel's launch counter must move, and the
-   first decode logits must match the plain path on the card.
-3. The reduced closed-loop serve, ``repro_torch.launch.serve``.
+   single-path tokens, every kernel of the path must be launched, and the
+   prefill and first decode logits must match the plain path on the card.
+3. zamba2-2.7b (hybrid: 54 Mamba2 layers, one shared attention block
+   applied 9 times) at full width, the same way; it runs all four kernels,
+   ssd_scan 54 times per prefill. A decode-step profile follows.
+4. mamba2-780m (ssm) at full width: both prompts, then four batched
+   requests whose tokens must equal the single-path tokens.
+5. The reduced closed-loop serve, ``repro_torch.launch.serve``, over one
+   tenant each of qwen2.5-3b, mamba2-780m and zamba2-2.7b.
+
+Each serving path sets the launch counters to 0 just before its runtime
+run and reads them just after.
 
 Output: the card's name and power limit first; a ``{"kernels": [...]}``
 line before the last; and as the last line
@@ -49,6 +64,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}   # tests/test_kernels.py
 QWEN = dict(Hq=16, Hkv=2, hd=128, D=2048)
+ZAMBA = dict(Hq=32, Hkv=32, hd=80, G=9, H=80, P=64, N=64)    # G: shared
+MAMBA = dict(H=48, P=64, N=128)                              # block uses
+SSD_CHUNK = 256
 REPORT = {}
 
 
@@ -171,22 +189,9 @@ def phase_kernels() -> dict:
                 if not torch.equal(same, got):
                     raise AssertionError("flash: GLOBAL_WINDOW != None")
     S = 500
-    q = randn((1, S, H, hd), bf16, gen)
-    k = randn((1, S, K, hd), bf16, gen)
-    v = randn((1, S, K, hd), bf16, gen)
-    err = compare("flash main-path prefill", flash_attention(
-        q, k, v, window=GLOBAL_WINDOW), ref.flash_attention_ref(q, k, v), bf16)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    flops = 4.0 * hd * H * S * (S + 1) / 2       # causal QK^T and PV
-    b_ms, b_by = bound(nbytes, flops, bf16)
-    out["flash_attention"] = dict(
-        shape=list(q.shape), kv_heads=K, max_abs_err=err,
-        ms=cuda_ms(lambda: flash_attention(q, k, v, window=GLOBAL_WINDOW)),
-        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by)
+    out["flash_attention"] = time_flash(
+        *(randn((1, S, h, hd), bf16, gen) for h in (H, K, K)),
+        "flash main-path prefill")
 
     # ---- decode attention: 4 slots over a 1024-row cache, plus edges
     dcases = [(4, 1024, H, K, hd, None, [0, 1, 700, 1500]),
@@ -214,17 +219,72 @@ def phase_kernels() -> dict:
                                         window=GLOBAL_WINDOW)
                 if not torch.equal(same, got):
                     raise AssertionError("decode: GLOBAL_WINDOW != None")
-    # main-path shape: the 36 layer slices of one slab, so each launch
-    # finds its cache cold in L2 as a decode step does
-    L, B, S = 36, 4, 1024
-    q = randn((B, H, hd), bf16, gen)
-    kc = randn((L, B, S, K, hd), bf16, gen)
-    vc = randn((L, B, S, K, hd), bf16, gen)
-    lengths = torch.tensor([144, 516, 144, 516], dtype=torch.int32,
+    # main-path shape: the 36 layer slices of one slab
+    B, S = 4, 1024
+    out["decode_attention"] = time_decode(
+        randn((B, H, hd), bf16, gen),
+        *(randn((36, B, S, K, hd), bf16, gen) for _ in range(2)),
+        "decode main-path step")
+
+    out["flash_attention"]["hd80"] = attention_hd80(gen)
+    out["decode_attention"]["hd80"] = decode_hd80(gen)
+    out["ssd_scan"] = phase_ssd(gen)
+    for name, r in out.items():
+        for tag, t in [("", r)] + [(" hd80", r[k]) for k in ("hd80",)
+                                   if k in r]:
+            lib_ms = ("none" if t["library_ms"] is None
+                      else f"{t['library_ms']:.4f} ms")
+            log(f"[kernels] {name}{tag} @ {t['shape']}: kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{lib_ms}, bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    return out
+
+
+def time_flash(q, k, v, name: str) -> dict:
+    """Flash attention at a main-path prefill shape (bf16, causal, no
+    window) against its plain version, then the kernel's, the plain
+    version's and SDPA's times beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import GLOBAL_WINDOW
+
+    _, S, H, hd = q.shape
+    err = compare(name, flash_attention(q, k, v, window=GLOBAL_WINDOW),
+                  ref.flash_attention_ref(q, k, v), torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    flops = 4.0 * hd * H * S * (S + 1) / 2       # causal QK^T and PV
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    return dict(
+        shape=list(q.shape), kv_heads=k.shape[2], max_abs_err=err,
+        ms=cuda_ms(lambda: flash_attention(q, k, v, window=GLOBAL_WINDOW)),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def time_decode(q, kc, vc, name: str) -> dict:
+    """Decode attention at a main-path decode shape: q (B,Hq,hd) bf16
+    against kc/vc (L,B,S,Hkv,hd), the layer slices of one slab, with
+    lengths 144/516. Each timed launch takes the next slice, so it finds
+    its cache cold in L2 as a decode step does."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models.attention import GLOBAL_WINDOW
+
+    L, B, S, K, hd = kc.shape
+    H = q.shape[1]
+    lengths = torch.tensor([144, 516] * (B // 2), dtype=torch.int32,
                            device="cuda")
-    err = compare("decode main-path step", decode_attention(
-        q, kc[0], vc[0], lengths, window=GLOBAL_WINDOW),
-        ref.decode_attention_ref(q, kc[0], vc[0], lengths), bf16)
+    err = compare(name, decode_attention(q, kc[0], vc[0], lengths,
+                                         window=GLOBAL_WINDOW),
+                  ref.decode_attention_ref(q, kc[0], vc[0], lengths),
+                  torch.bfloat16)
     it = iter(range(10 ** 9))
     layer = lambda: next(it) % L
     kt = kc.transpose(2, 3).contiguous()          # (L, B, Hkv, S, hd)
@@ -233,7 +293,7 @@ def phase_kernels() -> dict:
             < lengths[:, None])[:, None, None, :]
     visible = int(lengths.clamp(max=S).sum())
     nbytes = (2 * visible * K * hd + 2 * q.numel()) * 2 + lengths.numel() * 4
-    b_ms, b_by = bound(nbytes, 4.0 * hd * H * visible, bf16)
+    b_ms, b_by = bound(nbytes, 4.0 * hd * H * visible, torch.bfloat16)
 
     def lib():
         i = layer()
@@ -249,92 +309,326 @@ def phase_kernels() -> dict:
         i = layer()
         return ref.decode_attention_ref(q, kc[i], vc[i], lengths)
 
-    out["decode_attention"] = dict(
+    return dict(
         shape=[B, S, K, hd], lengths=lengths.tolist(), max_abs_err=err,
         ms=cuda_ms(kern, iters=72), plain_ms=cuda_ms(plain, iters=72),
         library_ms=cuda_ms(lib, iters=72), bound_ms=b_ms, bound_by=b_by)
-    for name, r in out.items():
-        log(f"[kernels] {name} @ {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+
+def attention_hd80(gen) -> dict:
+    """Flash attention at zamba2-2.7b's shared block: 32 q = 32 KV heads of
+    dim 80, a 500-token prompt, causal, no window."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    H, hd, S = ZAMBA["Hq"], ZAMBA["hd"], 500
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (randn((1, S, H, hd), dt, gen) for _ in range(3))
+        compare(f"flash zamba2 hd80 1,{S},{H},{H},{hd} {dt}",
+                flash_attention(q, k, v), ref.flash_attention_ref(q, k, v),
+                dt)
+    return time_flash(q, k, v, "flash zamba2 hd80 main-path prefill")
+
+
+def decode_hd80(gen) -> dict:
+    """Decode attention at zamba2-2.7b's shared block: q (4,32,80) against
+    the 9 block applications' (4,1024,32,80) caches of one slab."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    H, hd, G, B, S = ZAMBA["Hq"], ZAMBA["hd"], ZAMBA["G"], 4, 1024
+    for dt in (torch.float32, torch.bfloat16):
+        for lens in ([0, 1, 700, 1500], [1100, 1300, 5, 1024]):
+            q = randn((B, H, hd), dt, gen)
+            kc, vc = (randn((B, S, H, hd), dt, gen) for _ in range(2))
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            compare(f"decode zamba2 hd80 {B},{S},{H},{H},{hd} lens={lens} "
+                    f"{dt}", decode_attention(q, kc, vc, lengths),
+                    ref.decode_attention_ref(q, kc, vc, lengths), dt)
+    return time_decode(
+        randn((B, H, hd), torch.bfloat16, gen),
+        *(randn((G, B, S, H, hd), torch.bfloat16, gen) for _ in range(2)),
+        "decode zamba2 hd80 main-path step")
+
+
+def ssd_inputs(gen, B, S, H, P, N, dtype, strided=False):
+    """tests/test_kernels.py's distribution: softplus'd dt, A = -exp(0.3 z),
+    B and C at half scale; x, B, C in ``dtype``, dt and A in fp32. With
+    ``strided`` x, B and C are column slices of one (B, S, H*P + 2N)
+    tensor, the layout of the serving path."""
+    f32 = torch.float32
+    if strided:
+        xbc = randn((B, S, H * P + 2 * N), f32, gen)
+        xbc[..., H * P:] *= 0.5
+        xbc = xbc.to(dtype)
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    else:
+        x = randn((B, S, H, P), dtype, gen)
+        Bm, Cm = ((randn((B, S, N), f32, gen) * 0.5).to(dtype)
+                  for _ in range(2))
+    dt = torch.nn.functional.softplus(randn((B, S, H), f32, gen))
+    A = -torch.exp(randn((H,), f32, gen) * 0.3)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_bound(B, S, H, P, N, chunk, dtype) -> tuple:
+    """Least time for one scan with its final state: x, dt, A, B, C read
+    once, y and the fp32 state written once; the chunked products with
+    C B^T counted once per chunk (it does not depend on the head), on the
+    rows this S really has."""
+    xb = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * B * S * H * P * xb + B * S * H * 4 + H * 4
+              + 2 * B * S * N * xb + B * H * P * N * 4)
+    rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    flops = 2.0 * B * pairs * N + 2.0 * B * H * pairs * P \
+        + 4.0 * B * H * S * N * P
+    return bound(nbytes, flops, dtype)
+
+
+def phase_ssd(gen) -> dict:
+    """ssd_scan against ssd_scan_ref: y at the dtype's tolerance, the fp32
+    final state at 1e-3 (tests/test_kernels.py)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    cases = [  # B, S, H, P, N, chunk, init, strided, what
+        (1, 500, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"], SSD_CHUNK, False, False,
+         "zamba2 prefill"),
+        (1, 500, MAMBA["H"], MAMBA["P"], MAMBA["N"], SSD_CHUNK, False, False,
+         "mamba2 prefill"),
+        (2, 64, 4, 16, 16, 16, False, False, "sweep"),
+        (1, 100, 2, 32, 64, 32, True, False, "sweep ragged S + init"),
+        (2, 33, 4, 64, 32, 8, False, False, "sweep chunk 8"),
+        (1, 5, 8, 16, 16, 5, False, False, "S < 8"),
+        (2, 300, 16, 64, 128, SSD_CHUNK, True, False, "B = 2 + init"),
+        (1, 500, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"], SSD_CHUNK, False, True,
+         "zamba2 column slices"),
+    ]
+    for dt in (torch.float32, torch.bfloat16):
+        for B, S, H, P, N, chunk, init, strided, what in cases:
+            args = ssd_inputs(gen, B, S, H, P, N, dt, strided)
+            s0 = randn((B, H, P, N), torch.float32, gen) if init else None
+            y, sf = ssd_scan(*args, chunk=chunk, init_state=s0,
+                             return_state=True)
+            yr, sr = ref.ssd_scan_ref(*args, chunk=chunk, init_state=s0,
+                                      return_state=True)
+            name = f"ssd_scan {what} {B},{S},{H},{P} N={N} chunk={chunk}"
+            compare(f"{name} y {dt}", y, yr, dt)
+            compare(f"{name} final state {dt}", sf, sr, torch.float32,
+                    tol=1e-3)
+
+    def timed(H, P, N) -> dict:
+        B, S = 1, 500
+        args = ssd_inputs(gen, B, S, H, P, N, torch.bfloat16, strided=True)
+        kern = lambda: ssd_scan(*args, chunk=SSD_CHUNK, return_state=True)
+        plain = lambda: ref.ssd_scan_ref(*args, chunk=SSD_CHUNK,
+                                         return_state=True)
+        err = compare(f"ssd_scan main-path prefill {B},{S},{H},{P} N={N}",
+                      kern()[0], plain()[0], torch.bfloat16)
+        b_ms, b_by = ssd_bound(B, S, H, P, N, SSD_CHUNK, torch.bfloat16)
+        return dict(shape=[B, S, H, P], N=N, chunk=SSD_CHUNK,
+                    max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                    library_ms=None,
+                    library="none: no PyTorch call computes SSD",
+                    bound_ms=b_ms, bound_by=b_by)
+
+    out = timed(ZAMBA["H"], ZAMBA["P"], ZAMBA["N"])
+    out["mamba2"] = timed(MAMBA["H"], MAMBA["P"], MAMBA["N"])
+    m = out["mamba2"]
+    log(f"[kernels] ssd_scan mamba2 @ {m['shape']} N={m['N']}: kernel "
+        f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+        f"{m['bound_ms']:.5f} ms ({m['bound_by']})")
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase 2: the main path at full width
+# phases 2-4: the serving paths at full width
 # ---------------------------------------------------------------------------
-def phase_main_path() -> dict:
+def grow_cache(cache: dict, rows: int) -> dict:
+    """A copy of a prefill cache with ``rows`` zero rows appended to the
+    K/V sequence axis (axis 2); SSM leaves have no sequence axis."""
+    out = {}
+    for k, v in cache.items():
+        out[k] = (torch.cat([v, torch.zeros_like(v[:, :, :rows])], 2)
+                  if k in ("k", "v") else v.clone())
+    return out
+
+
+def step_bytes(cfg, params, prog, slots: int, max_seq: int) -> tuple:
+    """(weight bytes, SSM state bytes) one decode step must move. Every
+    weight is read once, except the embedding table when it is not tied
+    (the lookup gathers `slots` rows) and the hybrid's shared block, read
+    once per application; an SSM state and conv window are read and
+    written once per step."""
+    from repro_torch.core.arena import tree_bytes
+    from repro_torch.models.transformer import hybrid_groups
+
+    weights = tree_bytes(params)
+    if not cfg.tie_embeddings:
+        embed = params["embed"]["tok"]
+        weights -= embed.numel() * embed.element_size()
+    if cfg.family == "hybrid":
+        weights += tree_bytes(params["shared"]) * (hybrid_groups(cfg) - 1)
+    specs = prog.cache_specs(slots, max_seq)
+    state = 2 * sum(specs[k].nbytes for k in ("conv", "state") if k in specs)
+    return weights, state
+
+
+class plain_path:
+    """Every kernel's plain version while inside (REPRO_TORCH_KERNEL_MODE
+    ref)."""
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        ops.set_kernel_mode("ref")
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.set_kernel_mode(None)
+
+
+def first_logits(prog, params, prompt, cache_prog=None, cache_params=None):
+    """(prefill logits, first decode logits) for ``prompt``: the kernel
+    path and the plain path prefill alike; both decode the plain path's
+    argmax token against the kernel path's cache (grown by 32 rows)."""
+    with torch.no_grad():
+        toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+        pre_k, cache = prog.prefill(params, {"tokens": toks})
+        with plain_path():
+            pre_r, _ = prog.prefill(params, {"tokens": toks})
+        nxt = torch.argmax(pre_r, -1).to(torch.int32)[:, None]
+        cache_k = grow_cache(cache, 32)
+        cache_r = {k: v.clone() for k, v in cache_k.items()}
+        dec_k, _ = prog.decode_step(params, cache_k, {"tokens": nxt})
+        with plain_path():
+            dec_r, _ = prog.decode_step(params, cache_r, {"tokens": nxt})
+    return (pre_k, pre_r), (dec_k, dec_r), nxt
+
+
+def logits_direct(prog, params, prompt, arch) -> dict:
+    """Kernel path against plain path, elementwise. Prefill runs many
+    128-token bf16 attention layers whose softmax probabilities the kernel
+    keeps in fp32 and the plain version rounds to bf16; the difference
+    compounds through the residual stream, so that check takes twice the
+    bf16 tolerance."""
+    (pre_k, pre_r), (dec_k, dec_r), _ = first_logits(prog, params, prompt)
+    return dict(
+        prefill_logits_err=compare(
+            f"{arch} prefill logits kernel vs plain", pre_k, pre_r,
+            torch.bfloat16, tol=2 * TOL[torch.bfloat16]),
+        decode_logits_err=compare(
+            f"{arch} first decode logits kernel vs plain", dec_k, dec_r,
+            torch.bfloat16))
+
+
+def rel_rms(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def logits_fp32(prog, params, prompt, arch) -> dict:
+    """Kernel path against plain path for a deep bf16 model, where bf16
+    rounding noise (one-ulp flips of the SSD output, fp32 vs bf16 softmax
+    probabilities) compounds over 63 blocks and an elementwise check on
+    logits measures that noise: the kernel path's logits must lie within
+    5e-2 of the plain path's in relative RMS, and be at least as close as
+    the plain path's (up to 1.25x) to an fp32 run of the same weights
+    through the plain versions. The elementwise max difference is
+    reported."""
     import dataclasses
 
+    from repro_torch.models.programs import ModelProgram
+
+    (pre_k, pre_r), (dec_k, dec_r), nxt = first_logits(prog, params, prompt)
+    prog32 = ModelProgram(dataclasses.replace(prog.cfg, dtype="float32"))
+    cast = lambda t: {k: cast(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.float()
+    p32 = cast(params)
+    with torch.no_grad(), plain_path():
+        toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+        pre_t, cache_t = prog32.prefill(p32, {"tokens": toks})
+        dec_t, _ = prog32.decode_step(p32, grow_cache(cache_t, 32),
+                                      {"tokens": nxt})
+    del p32, cache_t
+    out = {}
+    for what, k, r, t in (("prefill", pre_k, pre_r, pre_t),
+                          ("first decode", dec_k, dec_r, dec_t)):
+        d, ek, er = rel_rms(k, r), rel_rms(k, t), rel_rms(r, t)
+        max_abs = float((k.float() - r.float()).abs().max())
+        log(f"[{arch}] {what} logits: kernel vs plain rel RMS {d:.3e} "
+            f"(max abs {max_abs:.3e}); vs fp32: kernel {ek:.3e}, plain "
+            f"{er:.3e}")
+        if not (d <= TOL[torch.bfloat16] and ek <= 1.25 * er):
+            raise AssertionError(f"{arch} {what} logits: kernel vs plain "
+                                 f"rel RMS {d:.3e} (limit 5e-2), vs fp32 "
+                                 f"{ek:.3e} against the plain path's "
+                                 f"{er:.3e} (limit 1.25x)")
+        key = what.split()[-1]
+        out[f"{key}_logits_err"] = max_abs
+        out[f"{key}_logits_rel_rms"] = dict(kernel_vs_plain=d,
+                                            kernel_vs_fp32=ek,
+                                            plain_vs_fp32=er)
+    return out
+
+
+def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
+                  logits: str | None, profile: bool) -> dict:
+    """One architecture's serving path at full width, from the port's
+    seeded bf16 init: optionally the prefill and first decode logits,
+    kernel path against plain path (``logits``: "direct" or "fp32", see
+    logits_direct and logits_fp32); then register (slots 4, max_seq
+    1024), one ``generate`` per prompt (128 and 500 tokens, 32 new), and
+    ``n_batched`` requests through one ``ContinuousBatcher``, whose tokens
+    must equal the single-path tokens. The launch counters are set to 0
+    just before the runtime run and read just after; each of ``kernels``
+    must have moved."""
     from repro_torch.configs import get_config
     from repro_torch.core import ContinuousBatcher, HydraRuntime, LMSpec
     from repro_torch.core.arena import tree_bytes
-    from repro_torch.kernels import ops
     from repro_torch.models.programs import ModelProgram
 
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config(arch)
+    tag = f"[{arch}]"
     prog = ModelProgram(cfg)
     t0 = time.perf_counter()
     params = prog.init(0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     param_bytes = tree_bytes(params)
-    log(f"[main] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"{tag} {cfg.family}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab_size}, {param_bytes / 1e9:.3f} GB of bf16 weights "
         f"drawn in {init_s:.1f}s")
 
-    # the first decode logits: kernel path vs plain path, same cache
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (128, 500)]
-    with torch.no_grad():
-        toks = torch.tensor([prompts[0]], dtype=torch.int32, device="cuda")
-        pre_k, cache = prog.prefill(params, {"tokens": toks})
-        ops.set_kernel_mode("ref")
-        try:
-            pre_r, _ = prog.prefill(params, {"tokens": toks})
-        finally:
-            ops.set_kernel_mode(None)
-        grow = lambda t: torch.cat([t, torch.zeros_like(t[:, :, :32])], 2)
-        nxt = torch.argmax(pre_r, -1).to(torch.int32)[:, None]
-        cache_k = {"k": grow(cache["k"]), "v": grow(cache["v"]),
-                   "length": cache["length"].clone()}
-        cache_r = {k: v.clone() for k, v in cache_k.items()}
-        dec_k, _ = prog.decode_step(params, cache_k, {"tokens": nxt})
-        ops.set_kernel_mode("ref")
-        try:
-            dec_r, _ = prog.decode_step(params, cache_r, {"tokens": nxt})
-        finally:
-            ops.set_kernel_mode(None)
-    # prefill runs 36 layers of 128-token bf16 attention whose softmax
-    # probabilities the kernel keeps in fp32 and the plain version rounds
-    # to bf16; the difference compounds through the residual stream, so
-    # this check takes twice the bf16 tolerance
-    prefill_err = compare("main path prefill logits kernel vs plain", pre_k,
-                          pre_r, torch.bfloat16, tol=2 * TOL[torch.bfloat16])
-    decode_err = compare("main path first decode logits kernel vs plain",
-                         dec_k, dec_r, torch.bfloat16)
-    del cache, cache_k, cache_r
+    res = dict(arch=cfg.name, family=cfg.family, init_s=init_s,
+               param_bytes=param_bytes)
+    if logits == "direct":
+        res.update(logits_direct(prog, params, prompts[0], arch))
+    elif logits == "fp32":
+        res.update(logits_fp32(prog, params, prompts[0], arch))
     prefill_ms = {}
     with torch.no_grad():
         for p in prompts:
             t = torch.tensor([p], dtype=torch.int32, device="cuda")
             prefill_ms[len(p)] = host_ms(lambda: prog.prefill(
                 params, {"tokens": t}), iters=3)
-    log(f"[main] prefill ms by prompt length: {prefill_ms}")
+    log(f"{tag} prefill ms by prompt length: {prefill_ms}")
 
     counters = _kernel_counters()
     for fn in counters.values():
-        fn.launches = 0                     # the main path's run starts here
+        fn.launches = 0                     # this path's run starts here
     rt = HydraRuntime(device="cuda", memory_budget_bytes=16 << 30)
     try:
         t0 = time.perf_counter()
         spec = LMSpec(cfg=cfg, params=params, max_seq=1024, slots=4)
-        rt.register_function("qwen", spec)
+        rt.register_function(arch, spec)
         register_s = time.perf_counter() - t0
-        single = [rt.generate("qwen", p, max_new_tokens=32) for p in prompts]
-        b = ContinuousBatcher(rt, "qwen")
+        single = [rt.generate(arch, p, max_new_tokens=32) for p in prompts]
+        b = ContinuousBatcher(rt, arch)
         try:
-            futs = [b.submit(prompts[i % 2], 32) for i in range(6)]
+            futs = [b.submit(prompts[i % 2], 32) for i in range(n_batched)]
             step_ms, decode_tokens = [], 0
             t0 = time.perf_counter()
             while b.active or b.pending:
@@ -350,57 +644,57 @@ def phase_main_path() -> dict:
         finally:
             b.close()
         launches = {name: fn.launches for name, fn in counters.items()}
-        b = ContinuousBatcher(rt, "qwen")
-        try:
-            for _ in range(4):
-                b.submit(prompts[0], 24)
-            b.step()                        # admits all four slots
-            profile = profile_decode(b, steps=8)
-            b.run_until_done()
-        finally:
-            b.close()
-        exe = rt.exe_cache.stats()
-        arena = rt.arena_pool.stats()
+        if profile:
+            b = ContinuousBatcher(rt, arch)
+            try:
+                for _ in range(4):
+                    b.submit(prompts[0], 24)
+                b.step()                    # admits all four slots
+                res["decode_profile"] = profile_decode(b, steps=8)
+                b.run_until_done()
+            finally:
+                b.close()
+        res["exe_cache"] = rt.exe_cache.stats()
+        res["arena"] = rt.arena_pool.stats()
     finally:
         rt.shutdown()
 
     for i, o in enumerate(outs):
         if o != single[i % 2]:
-            raise AssertionError(f"batched request {i} tokens {o} != "
-                                 f"single-path {single[i % 2]}")
-    log(f"[main] batched tokens equal single-path tokens for all "
+            raise AssertionError(f"{arch}: batched request {i} tokens {o} "
+                                 f"!= single-path {single[i % 2]}")
+    log(f"{tag} batched tokens equal single-path tokens for all "
         f"{len(outs)} requests (prompt lengths 128/500, 32 new tokens)")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 f"main path")
-    log(f"[main] kernel launches on the main path: {launches}")
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"{arch}: kernel {name} was never launched "
+                                 f"on its serving path")
+    n_prefills = len(prompts) + n_batched
+    if "ssd_scan" in kernels and \
+            launches["ssd_scan"] != cfg.n_layers * n_prefills:
+        raise AssertionError(f"{arch}: {launches['ssd_scan']} ssd_scan "
+                             f"launches, want {cfg.n_layers} per prefill x "
+                             f"{n_prefills}")
+    log(f"{tag} kernel launches on the serving path: {launches}")
 
-    # a decode step must read every weight except the embedding table (it
-    # gathers 4 rows) plus the visible KV rows
-    embed = params["embed"]["tok"]
-    step_bytes = param_bytes - embed.numel() * embed.element_size()
-    kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    weights, state = step_bytes(cfg, params, prog, 4, 1024)
     med = float(np.median(step_ms))
     toks_total = sum(len(o) for o in outs)
-    res = dict(
-        arch=cfg.name, init_s=init_s, register_s=register_s,
-        param_bytes=param_bytes, exe_cache=exe, arena=arena,
-        prefill_logits_err=prefill_err, decode_logits_err=decode_err,
-        launches=launches, prefill_ms=prefill_ms, decode_profile=profile,
-        tokens=toks_total, wall_s=wall_s,
-        tok_s=toks_total / wall_s, decode_steps=len(step_ms),
-        decode_step_ms_median=med, decode_step_ms_min=min(step_ms),
+    res.update(
+        register_s=register_s, launches=launches, prefill_ms=prefill_ms,
+        tokens=toks_total, wall_s=wall_s, tok_s=toks_total / wall_s,
+        decode_steps=len(step_ms), decode_step_ms_median=med,
+        decode_step_ms_min=min(step_ms),
         decode_tok_s=decode_tokens / (sum(step_ms) / 1e3),
-        step_weight_bytes=step_bytes,
-        step_bound_ms=step_bytes / PEAK_BYTES_S * 1e3,
-        kv_bytes_per_token=kv_row)
-    log(f"[main] registration {register_s * 1e3:.1f} ms; {toks_total} tokens "
+        step_weight_bytes=weights, step_state_bytes=state,
+        step_weight_bound_ms=weights / PEAK_BYTES_S * 1e3,
+        step_bound_ms=(weights + state) / PEAK_BYTES_S * 1e3)
+    log(f"{tag} registration {register_s * 1e3:.1f} ms; {toks_total} tokens "
         f"in {wall_s:.2f}s = {res['tok_s']:.1f} tok/s through the batcher; "
         f"decode step median {med:.2f} ms (min {min(step_ms):.2f}) beside "
-        f"its weight-read bound {res['step_bound_ms']:.2f} ms "
-        f"({step_bytes / 1e9:.2f} GB / 3.35 TB/s); decode-only "
-        f"{res['decode_tok_s']:.1f} tok/s")
+        f"its bound {res['step_bound_ms']:.3f} ms ({weights / 1e9:.3f} GB "
+        f"of weights read + {state / 1e9:.3f} GB of SSM state read and "
+        f"written, / 3.35 TB/s); decode-only {res['decode_tok_s']:.1f} tok/s")
     del params
     torch.cuda.empty_cache()
     return res
@@ -439,7 +733,8 @@ def profile_decode(batcher, steps: int) -> dict:
                 e.time_range.elapsed_us() / 1e3 / steps
             n += 1
     classes = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_fwd",
-               "decode_attention": "decode_kernel"}
+               "decode_attention": "decode_kernel",
+               "ssd_scan": "ssd_scan_kernel"}
     by_class = {c: 0.0 for c in list(classes) + ["gemm", "other"]}
     for name, ms in by_name.items():
         cls = next((c for c, key in classes.items() if key in name), None)
@@ -465,16 +760,19 @@ def _kernel_counters() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention, "ssd_scan": ssd_scan}
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the reduced closed-loop serve
+# phase 5: the reduced closed-loop serve
 # ---------------------------------------------------------------------------
 def phase_serve() -> dict:
     from repro_torch.launch import serve
-    s = serve.main(["--pool", "0", "--tenants", "2", "--requests", "8"])
+    s = serve.main(["--pool", "0", "--archs",
+                    "qwen2.5-3b,mamba2-780m,zamba2-2.7b", "--tenants", "3",
+                    "--requests", "9"])
     if s["tokens"] <= 0:
         raise AssertionError("serve produced no tokens")
     return {k: s[k] for k in ("requests", "tokens", "wall_s")}
@@ -487,6 +785,16 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:72"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:76"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:67"),
+}
+ATTENTION = ("rmsnorm", "flash_attention", "decode_attention")
+# arch -> (kernels its serving path must launch, batched requests,
+#          how its logits are held to the plain path, decode profile)
+PATHS = {
+    "qwen2.5-3b": (ATTENTION, 6, "direct", True),
+    "zamba2-2.7b": (ATTENTION + ("ssd_scan",), 6, "fp32", True),
+    "mamba2-780m": (("rmsnorm", "ssd_scan"), 4, None, False),
 }
 
 
@@ -512,7 +820,12 @@ def main() -> int:
                 log(f"[ptxas {stem}] {line.strip()}")
 
     REPORT["kernels"] = phase_kernels()
-    REPORT["main_path"] = phase_main_path()
+    REPORT["paths"] = {}
+    for arch, (kernels, n_batched, logits, profile) in PATHS.items():
+        t0 = time.perf_counter()
+        REPORT["paths"][arch] = phase_lm_path(
+            arch, kernels, n_batched, logits=logits, profile=profile)
+        log(f"[{arch}] path done in {time.perf_counter() - t0:.1f}s")
     REPORT["serve"] = phase_serve()
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -524,9 +837,11 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = REPORT["kernels"][name]
+        by_path = {arch: p["launches"][name]
+                   for arch, p in REPORT["paths"].items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=REPORT["main_path"]["launches"][name],
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))

@@ -194,8 +194,12 @@ class HydraRuntime:
         def build():
             def prefill_insert(params, arena_cache, tokens, slot: int):
                 """prefill (1, prompt_len), then write the slot's whole
-                row of the arena cache slab in place: the prompt's KV,
-                zeros up to max_seq, and length = prompt_len."""
+                row of every leaf of the arena cache slab in place, as the
+                reference writes the source padded to the slab's shape:
+                a leaf whose source row has the slot row's shape (an SSM
+                conv window or state) is copied whole; one with a
+                sequence axis (K/V, (L, S, Hkv, hd)) gets the prompt's
+                rows and zeros up to max_seq; length = prompt_len."""
                 with torch.no_grad():
                     logits, cache = prog.prefill(params, {"tokens": tokens})
                     for k, src in cache.items():
@@ -203,9 +207,12 @@ class HydraRuntime:
                         if k == "length":
                             dst[slot] = prompt_len
                             continue
-                        row = dst[:, slot]     # (L, S, Hkv, hd) view
-                        row[:, :prompt_len] = src[:, 0]
-                        row[:, prompt_len:] = 0
+                        row, src_row = dst[:, slot], src[:, 0]
+                        if src_row.shape == row.shape:
+                            row.copy_(src_row)
+                        else:
+                            row[:, :prompt_len] = src_row
+                            row[:, prompt_len:] = 0
                     return _greedy(logits), arena_cache
             return prefill_insert
 

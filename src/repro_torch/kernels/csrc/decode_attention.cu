@@ -197,6 +197,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 16: launch<T, 16>(q, k, v, lengths, o, B, S, Hkv, group, q_sb, q_sh, ks, vs, o_sb, o_sh, scale, window, s); break;
     case 32: launch<T, 32>(q, k, v, lengths, o, B, S, Hkv, group, q_sb, q_sh, ks, vs, o_sb, o_sh, scale, window, s); break;
     case 64: launch<T, 64>(q, k, v, lengths, o, B, S, Hkv, group, q_sb, q_sh, ks, vs, o_sb, o_sh, scale, window, s); break;
+    case 80: launch<T, 80>(q, k, v, lengths, o, B, S, Hkv, group, q_sb, q_sh, ks, vs, o_sb, o_sh, scale, window, s); break;
     case 128: launch<T, 128>(q, k, v, lengths, o, B, S, Hkv, group, q_sb, q_sh, ks, vs, o_sb, o_sh, scale, window, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

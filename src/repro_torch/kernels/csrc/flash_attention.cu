@@ -160,6 +160,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 16: launch<T, 16>(q, k, v, o, B, S, Hq, group, qs, ks, vs, os, scale, causal, window, stream); break;
     case 32: launch<T, 32>(q, k, v, o, B, S, Hq, group, qs, ks, vs, os, scale, causal, window, stream); break;
     case 64: launch<T, 64>(q, k, v, o, B, S, Hq, group, qs, ks, vs, os, scale, causal, window, stream); break;
+    case 80: launch<T, 80>(q, k, v, o, B, S, Hq, group, qs, ks, vs, os, scale, causal, window, stream); break;
     case 128: launch<T, 128>(q, k, v, o, B, S, Hq, group, qs, ks, vs, os, scale, causal, window, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

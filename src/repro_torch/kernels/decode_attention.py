@@ -31,7 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_window
 from repro_torch.kernels.ref import decode_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128)
 MAX_GROUP = 16             # query heads per KV head in one block
 _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [_LL] * 10

@@ -31,7 +31,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128)
 _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [_LL] * 12
              + [ctypes.c_float, ctypes.c_int, _LL, ctypes.c_int,

@@ -9,6 +9,8 @@ Dispatch policy (``kernel_mode()``, read from ``REPRO_TORCH_KERNEL_MODE``):
                the serving path sets it.
 
 There is no fallback: a CUDA tensor goes through its kernel or raises.
+``ssd_decode`` is the plain version on every device and in every mode, as
+the reference's is: a single-token state update is no kernel there.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import ssd_scan as _ssd
 
 MODE_ENV = "REPRO_TORCH_KERNEL_MODE"
 MODES = ("auto", "cuda", "ref")
@@ -71,3 +74,16 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=None,
                                         window=window, scale=scale)
     return _ref.decode_attention_ref(q, k_cache, v_cache, lengths,
                                      window=window, scale=scale)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None,
+             return_state=False):
+    if _use_kernel(x):
+        return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                             init_state=init_state, return_state=return_state)
+    return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                             init_state=init_state, return_state=return_state)
+
+
+def ssd_decode(x, dt, A, Bm, Cm, state):
+    return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, state)

@@ -39,7 +39,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--archs", default="qwen2.5-3b",
                     help="comma-separated model architectures to serve "
-                         "(dense family only in this port)")
+                         "(the dense, ssm and hybrid families are ported, "
+                         "e.g. qwen2.5-3b,mamba2-780m,zamba2-2.7b)")
     ap.add_argument("--tenants", type=int, default=2,
                     help="tenants per architecture (each gets its own "
                          "registered function)")

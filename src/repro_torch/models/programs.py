@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 
 
@@ -58,11 +59,22 @@ class ModelProgram:
     # ------------------------------------------------------------------
     def cache_specs(self, batch: int, seq: int) -> dict:
         cfg = self.cfg
-        tf._require_dense(cfg)
-        kv = TensorSpec((cfg.n_layers, batch, seq, cfg.n_kv_heads,
-                         cfg.resolved_head_dim), torch_dtype(cfg.dtype))
-        return {"k": kv, "v": kv,
-                "length": TensorSpec((batch,), torch.int32)}
+        tf.require_ported(cfg)
+        dt = torch_dtype(cfg.dtype)
+        specs = {}
+        if cfg.family in ("ssm", "hybrid"):
+            specs["conv"] = TensorSpec((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                                        ssm_mod.conv_dim(cfg)), dt)
+            specs["state"] = TensorSpec((cfg.n_layers, batch, cfg.ssm_heads,
+                                         cfg.ssm_head_dim, cfg.ssm_state),
+                                        torch.float32)
+        if cfg.family != "ssm":
+            n_kv = tf.hybrid_groups(cfg) if cfg.family == "hybrid" \
+                else cfg.n_layers
+            specs["k"] = specs["v"] = TensorSpec(
+                (n_kv, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim), dt)
+        specs["length"] = TensorSpec((batch,), torch.int32)
+        return specs
 
     def cache_bytes(self, batch: int, seq: int) -> int:
         return sum(s.nbytes for s in self.cache_specs(batch, seq).values())

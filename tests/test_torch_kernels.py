@@ -259,5 +259,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_kernel_sources_present():
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert names == {"rmsnorm.cu", "flash_attention.cu",
-                     "decode_attention.cu"}
+                     "decode_attention.cu", "ssd_scan.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
