@@ -13,13 +13,21 @@ phases; any failure exits non-zero.
    fp32, at the full-width shapes of the serving paths plus edge cases,
    with the tolerances of tests/test_kernels.py (fp32 2e-5, bf16 5e-2,
    the SSD final state 1e-3): rmsnorm; flash and decode attention at
-   qwen2.5-3b's and zamba2-2.7b's (head dim 80) shapes, ragged S, a
-   window, deep GQA, decode lengths 0, 1 and > S; ssd_scan at zamba2's
+   qwen2.5-3b's, zamba2-2.7b's (head dim 80) and gemma3-1b's (head dim
+   256, 4 q / 1 KV head, window 512) shapes, ragged S, a window, deep
+   GQA, decode lengths 0, 1 and > S, lengths that end inside a split and
+   windows that leave most splits empty; ssd_scan at zamba2's
    and mamba2's 500-token prefill (chunk 256), the tests' sweep (ragged
    S, an init state, chunk 8), S < 8, B = 2 and the served column-slice
    layout. It times each kernel, its plain version and, where one exists,
    one PyTorch library call for the same function (never called by the
-   port) as a yardstick.
+   port) as a yardstick; for the attention kernels also each one's
+   device time from torch.profiler (``device_ms``: kernel durations
+   summed, without the host's launch gaps, which CUDA events over
+   back-to-back calls of a few-microsecond kernel measure instead). The
+   attention rows also record their CTA count
+   (decode: the split plan) and the kernel's registers and spills from
+   the ptxas report.
 2. qwen2.5-3b (dense) at full width: the port's seeded init (36 layers,
    bf16) registered in a ``HydraRuntime`` (slots 4, max_seq 1024), one
    ``generate`` per prompt (128 and 500 tokens), then six requests
@@ -48,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +75,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}   # tests/test_kernels.py
 QWEN = dict(Hq=16, Hkv=2, hd=128, D=2048)
 ZAMBA = dict(Hq=32, Hkv=32, hd=80, G=9, H=80, P=64, N=64)    # G: shared
 MAMBA = dict(H=48, P=64, N=128)                              # block uses
+GEMMA3 = (4, 1, 256)             # gemma3-1b: q heads, KV heads, head dim
+GEMMA3_WINDOW = 512              # its local layers' sliding window
 SSD_CHUNK = 256
 REPORT = {}
 
@@ -93,6 +104,30 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the summed durations of the
+    kernels (and copies) it runs on the card, from torch.profiler, over
+    ``iters`` calls after a warm-up. Unlike cuda_ms it leaves out the gaps
+    while the host enqueues the next launch, which dominate a call whose
+    kernels take microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):              # a window the profiler saw no kernel in
+        with profile(activities=[ProfilerActivity.CPU,  # is taken again
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if total:
+            return total / 1e3 / iters
+    return "not measured"
 
 
 def compare(name: str, got, want, dtype, tol: float | None = None) -> float:
@@ -172,7 +207,9 @@ def phase_kernels() -> dict:
              (1, 500, H, K, hd, True, 64),
              (2, 128, 4, 2, 64, True, None), (1, 256, 4, 1, 32, True, 64),
              (2, 100, 8, 8, 16, True, None), (1, 64, 4, 4, 128, False, None),
-             (1, 64, 16, 2, 8, True, 16)]
+             (1, 64, 16, 2, 8, True, 16), (2, 333, 8, 2, 128, True, None),
+             (1, 640, *GEMMA3, True, GEMMA3_WINDOW),
+             (2, 200, *GEMMA3, True, None)]
     for dt in (f32, bf16):
         for B, S, hq, hkv, d, causal, win in cases:
             q = randn((B, S, hq, d), dt, gen)
@@ -198,7 +235,11 @@ def phase_kernels() -> dict:
               (4, 1024, H, K, hd, 256, [0, 1, 700, 1500]),
               (4, 1024, H, K, hd, 256, [1100, 1300, 5, 1024]),
               (2, 256, 4, 2, 64, None, None), (3, 100, 8, 1, 32, None, None),
-              (2, 512, 4, 4, 128, 128, None), (1, 64, 16, 2, 16, None, None)]
+              (2, 512, 4, 4, 128, 128, None), (1, 64, 16, 2, 16, None, None),
+              (3, 1024, H, K, hd, None, [45, 77, 1000]),   # ends mid-split
+              (2, 1024, H, K, hd, 20, [1000, 33]),    # most splits empty
+              (4, 1024, *GEMMA3, GEMMA3_WINDOW, [700, 1024, 0, 1500]),
+              (2, 1024, *GEMMA3, None, [144, 516])]
     for dt in (f32, bf16):
         for B, S, hq, hkv, d, win, lens in dcases:
             q = randn((B, hq, d), dt, gen)
@@ -228,21 +269,80 @@ def phase_kernels() -> dict:
 
     out["flash_attention"]["hd80"] = attention_hd80(gen)
     out["decode_attention"]["hd80"] = decode_hd80(gen)
+    # gemma3-1b's local layer: 4 q heads and 1 KV head of dim 256, window
+    # 512, over a 1024-token prompt and a 1024-row cache (26 layer slices)
+    hq, hkv, d = GEMMA3
+    out["flash_attention"]["gemma3"] = time_flash(
+        *(randn((1, 1024, h, d), bf16, gen) for h in (hq, hkv, hkv)),
+        "flash gemma3 hd256 window 512", window=GEMMA3_WINDOW)
+    out["decode_attention"]["gemma3"] = time_decode(
+        randn((4, hq, d), bf16, gen),
+        *(randn((26, 4, 1024, hkv, d), bf16, gen) for _ in range(2)),
+        "decode gemma3 hd256 window 512 step", window=GEMMA3_WINDOW,
+        lens=(700, 1024))
     out["ssd_scan"] = phase_ssd(gen)
     for name, r in out.items():
-        for tag, t in [("", r)] + [(" hd80", r[k]) for k in ("hd80",)
+        for tag, t in [("", r)] + [(f" {k}", r[k]) for k in ("hd80", "gemma3")
                                    if k in r]:
             lib_ms = ("none" if t["library_ms"] is None
                       else f"{t['library_ms']:.4f} ms")
+            grid = (f"; device ms: kernel {t['device_ms']}, plain "
+                    f"{t['plain_device_ms']}, library "
+                    f"{t['library_device_ms']}; {t['ctas']} CTAs, ptxas "
+                    f"{t['ptxas']}" if "ctas" in t else "")
             log(f"[kernels] {name}{tag} @ {t['shape']}: kernel "
                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-                f"{lib_ms}, bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+                f"{lib_ms}, bound {t['bound_ms']:.5f} ms ({t['bound_by']})"
+                f"{grid}")
     return out
 
 
-def time_flash(q, k, v, name: str) -> dict:
-    """Flash attention at a main-path prefill shape (bf16, causal, no
-    window) against its plain version, then the kernel's, the plain
+def ptxas_usage(stem: str, kernel: str, *parts: str) -> dict:
+    """Registers and spills of one kernel instantiation from the ptxas -v
+    report of ``csrc/<stem>.cu``: the first entry whose mangled name holds
+    ``kernel`` and every one of ``parts`` (template arguments, e.g.
+    "Li128E" for the int 128)."""
+    from repro_torch.kernels import _build
+
+    cur = None
+    for line in _build.BUILD_LOGS.get(stem, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            cur = name if kernel in name and all(p in name for p in parts) \
+                else None
+            spills = None
+        elif cur and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                               r"loads", line).groups()
+            spills = dict(spill_stores=int(st), spill_loads=int(ld))
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            return dict(kernel=cur, registers=int(m.group(1)),
+                        **(spills or {}))
+    return {"kernel": kernel, "registers": "not measured"}
+
+
+def timings(kern, plain, lib, iters: int) -> dict:
+    """The kernel's, the plain version's and the library call's times:
+    CUDA events over back-to-back calls (``*ms``) and the device time of
+    one call (``*device_ms``)."""
+    return dict(ms=cuda_ms(kern, iters=iters),
+                plain_ms=cuda_ms(plain, iters=iters),
+                library_ms=cuda_ms(lib, iters=iters),
+                device_ms=device_ms(kern), plain_device_ms=device_ms(plain),
+                library_device_ms=device_ms(lib))
+
+
+def attention_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs a causal/windowed prefill of S tokens computes."""
+    if not causal:
+        return S * S
+    w = window or S
+    return sum(min(i + 1, w) for i in range(S))
+
+
+def time_flash(q, k, v, name: str, window=None) -> dict:
+    """Flash attention at a prefill shape (bf16, causal, ``window`` or
+    none) against its plain version, then the kernel's, the plain
     version's and SDPA's times beside the bound."""
     import torch.nn.functional as F
 
@@ -250,50 +350,71 @@ def time_flash(q, k, v, name: str) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.attention import GLOBAL_WINDOW
 
-    _, S, H, hd = q.shape
-    err = compare(name, flash_attention(q, k, v, window=GLOBAL_WINDOW),
-                  ref.flash_attention_ref(q, k, v), torch.bfloat16)
+    B, S, H, hd = q.shape
+    win = window or GLOBAL_WINDOW
+    err = compare(name, flash_attention(q, k, v, window=win),
+                  ref.flash_attention_ref(q, k, v, window=window),
+                  torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    flops = 4.0 * hd * H * S * (S + 1) / 2       # causal QK^T and PV
+    flops = 4.0 * hd * H * B * attention_pairs(S, True, window)  # QK^T, PV
     b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
     return dict(
-        shape=list(q.shape), kv_heads=k.shape[2], max_abs_err=err,
-        ms=cuda_ms(lambda: flash_attention(q, k, v, window=GLOBAL_WINDOW)),
-        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        shape=list(q.shape), kv_heads=k.shape[2], window=window,
+        max_abs_err=err, ctas=-(-S // 64) * H * B,
+        ptxas=ptxas_usage("flash_attention", "flash_wgmma_kernel",
+                          f"Li{hd}E"),
+        **timings(lambda: flash_attention(q, k, v, window=win),
+                  lambda: ref.flash_attention_ref(q, k, v, window=window),
+                  lib, iters=30),
         bound_ms=b_ms, bound_by=b_by)
 
 
-def time_decode(q, kc, vc, name: str) -> dict:
-    """Decode attention at a main-path decode shape: q (B,Hq,hd) bf16
-    against kc/vc (L,B,S,Hkv,hd), the layer slices of one slab, with
-    lengths 144/516. Each timed launch takes the next slice, so it finds
-    its cache cold in L2 as a decode step does."""
+def time_decode(q, kc, vc, name: str, window=None,
+                lens=(144, 516)) -> dict:
+    """Decode attention at a decode shape: q (B,Hq,hd) bf16 against kc/vc
+    (L,B,S,Hkv,hd), the layer slices of one slab, with ``lens`` repeated
+    over the rows. Each timed launch takes the next slice, so it finds its
+    cache cold in L2 as a decode step does."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      split_plan)
     from repro_torch.models.attention import GLOBAL_WINDOW
 
     L, B, S, K, hd = kc.shape
     H = q.shape[1]
-    lengths = torch.tensor([144, 516] * (B // 2), dtype=torch.int32,
+    lengths = torch.tensor(list(lens) * (B // len(lens)), dtype=torch.int32,
                            device="cuda")
+    win = window or GLOBAL_WINDOW
     err = compare(name, decode_attention(q, kc[0], vc[0], lengths,
-                                         window=GLOBAL_WINDOW),
-                  ref.decode_attention_ref(q, kc[0], vc[0], lengths),
+                                         window=win),
+                  ref.decode_attention_ref(q, kc[0], vc[0], lengths,
+                                           window=window),
                   torch.bfloat16)
     it = iter(range(10 ** 9))
     layer = lambda: next(it) % L
     kt = kc.transpose(2, 3).contiguous()          # (L, B, Hkv, S, hd)
     vt = vc.transpose(2, 3).contiguous()
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-    visible = int(lengths.clamp(max=S).sum())
+    pos = torch.arange(S, device="cuda")[None, :]
+    ln = lengths[:, None].long()
+    seen = (pos < ln) & (pos >= (ln - window if window else 0))
+    mask = seen[:, None, None, :]
+    visible = int(seen.sum())
     nbytes = (2 * visible * K * hd + 2 * q.numel()) * 2 + lengths.numel() * 4
     b_ms, b_by = bound(nbytes, 4.0 * hd * H * visible, torch.bfloat16)
+    plan = split_plan(S, hd, q.dtype)
+    G = next(g for g in (1, 2, 4, 8, 16) if g >= H // K)   # P V's template
 
     def lib():
         i = layer()
@@ -302,17 +423,23 @@ def time_decode(q, kc, vc, name: str) -> dict:
 
     def kern():
         i = layer()
-        return decode_attention(q, kc[i], vc[i], lengths,
-                                window=GLOBAL_WINDOW)
+        return decode_attention(q, kc[i], vc[i], lengths, window=win)
 
     def plain():
         i = layer()
-        return ref.decode_attention_ref(q, kc[i], vc[i], lengths)
+        return ref.decode_attention_ref(q, kc[i], vc[i], lengths,
+                                        window=window)
 
     return dict(
-        shape=[B, S, K, hd], lengths=lengths.tolist(), max_abs_err=err,
-        ms=cuda_ms(kern, iters=72), plain_ms=cuda_ms(plain, iters=72),
-        library_ms=cuda_ms(lib, iters=72), bound_ms=b_ms, bound_by=b_by)
+        shape=[B, S, K, hd], q_heads=H, window=window,
+        lengths=lengths.tolist(), max_abs_err=err, chunk=plan.chunk,
+        splits=plan.splits, ctas=plan.splits * K * B,
+        combine_ctas=H * B,
+        ptxas=[ptxas_usage("decode_attention", "decode_scores_kernel",
+                           "13__nv_bfloat16", f"Li{hd}EE"),
+               ptxas_usage("decode_attention", "decode_pv_kernel",
+                           "13__nv_bfloat16", f"Li{hd}ELi{G}E")],
+        **timings(kern, plain, lib, iters=72), bound_ms=b_ms, bound_by=b_by)
 
 
 def attention_hd80(gen) -> dict:
@@ -732,12 +859,15 @@ def profile_decode(batcher, steps: int) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / steps
             n += 1
-    classes = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_fwd",
-               "decode_attention": "decode_kernel",
-               "ssd_scan": "ssd_scan_kernel"}
+    classes = {"rmsnorm": ("rmsnorm_kernel",),
+               "flash_attention": ("flash_fwd", "flash_wgmma"),
+               "decode_attention": ("decode_scores", "decode_pv",
+                                    "decode_combine"),
+               "ssd_scan": ("ssd_scan_kernel",)}
     by_class = {c: 0.0 for c in list(classes) + ["gemm", "other"]}
     for name, ms in by_name.items():
-        cls = next((c for c, key in classes.items() if key in name), None)
+        cls = next((c for c, keys in classes.items()
+                    if any(key in name for key in keys)), None)
         if cls is None:
             low = name.lower()
             cls = "gemm" if ("gemm" in low or "cutlass" in low
@@ -844,7 +974,10 @@ def main() -> int:
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"],
+            **{k: r[k] for k in ("device_ms", "plain_device_ms",
+                                 "library_device_ms", "ctas", "splits",
+                                 "ptxas") if k in r}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lock = threading.Lock()
 _libs: dict = {}
 _fns: dict = {}
-BUILD_LOGS: dict = {}          # source stem -> nvcc output (ptxas -v report)
+BUILD_LOGS: dict = {}          # source stem -> nvcc output (ptxas -v report),
+                               # kept beside each library as <name>.log
 
 
 def nvcc_path() -> str:
@@ -65,6 +66,9 @@ def build_all() -> dict:
     for src in sources:
         out = _target(src)
         if out.exists():
+            log = out.with_suffix(".log")
+            if log.exists():
+                BUILD_LOGS.setdefault(src.stem, log.read_text())
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
@@ -77,6 +81,7 @@ def build_all() -> dict:
         log, _ = proc.communicate()
         BUILD_LOGS[src.stem] = log
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)        # atomic: racing builders agree
         else:
             tmp.unlink(missing_ok=True)

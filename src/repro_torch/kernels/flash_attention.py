@@ -7,13 +7,17 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 sliding window ``kpos > qpos - window``, fp32 online softmax and
 ``acc / max(l, 1e-30)``.
 
-Bound on the H100: operations at long prompts, bytes at short ones. This
-first kernel multiplies with scalar fp32 FMAs (no tensor cores yet). Its
-design answers the bound by visiting only the KV tiles a query tile can
-see (tiles above the causal diagonal or before the window are skipped,
-where the Pallas grid visits every block) and by sharing each K/V tile in
-shared memory across 16 query rows. It reads the (B, S, H, hd) layout
-through strides, so the wrapper makes no transposed copies.
+Bound on the H100: operations at long prompts, bytes at short ones. bf16
+runs on the tensor cores: one CTA per (64-query tile, head, row), a
+warpgroup issuing ``wgmma`` for Q K^T and P V, and a producer warp
+streaming 64-key K/V tiles through TMA into a 2-stage ring. fp32 keeps
+the scalar-FMA kernel (``wgmma`` on fp32 is TF32, which misses the fp32
+tolerance); a bf16 layout TMA cannot address (a base or a stride that is
+not a multiple of 16 bytes) raises. Both visit only the KV tiles
+a query tile can see (tiles above the causal diagonal or before the
+window are skipped, where the Pallas grid visits every block), and both
+read the (B, S, H, hd) layout through strides, so the wrapper makes no
+transposed copies.
 
 The window is a Python int applied literally, with no overflow in the
 index arithmetic, so ``GLOBAL_WINDOW`` gives the same result as None.
@@ -31,7 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 80, 128)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [_LL] * 12
              + [ctypes.c_float, ctypes.c_int, _LL, ctypes.c_int,
@@ -76,6 +80,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 tensors need 16-byte aligned "
+                         "bases and strides (the kernel loads them by TMA)")
     win = check_window(window)
     scale = scale if scale is not None else hd ** -0.5
     out = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)

@@ -29,6 +29,18 @@ FLASH_CASES = [                               # tests/test_kernels.py sweep
     (1, 64, 16, 2, 8, True, 16),              # deep GQA + window
     (1, 500, 16, 2, 128, True, None),         # qwen2.5-3b prefill
     (1, 500, 32, 32, 80, True, None),         # zamba2-2.7b shared block
+    (1, 640, 4, 1, 256, True, 512),           # gemma3-1b local layer
+    (2, 200, 4, 1, 256, True, None),          # gemma3-1b global layer
+    (2, 333, 8, 2, 128, True, None),          # S not a multiple of 64
+    (1, 150, 4, 2, 80, False, 40),            # ragged, window, non-causal
+]
+DECODE_SPLIT_CASES = [                        # B, S, Hq, Hkv, hd, window, lengths
+    (2, 1024, 4, 1, 256, 512, [700, 1024]),   # gemma3-1b local layer
+    (2, 1024, 4, 1, 256, None, [0, 1500]),    # gemma3-1b global layer
+    (3, 1024, 16, 2, 128, None, [45, 77, 1000]),   # lengths end mid-split
+    (2, 1024, 16, 2, 128, 20, [1000, 33]),    # most splits empty
+    (2, 100, 8, 1, 32, 7, [100, 64]),         # ragged S, one split's edge
+    (1, 64, 16, 2, 8, None, [3]),
 ]
 RMS_SHAPES = [(8, 64), (2, 17, 128), (100, 256), (4, 1, 2048)]
 SSD_CASES = [                                 # B, S, H, P, N, chunk, init
@@ -114,6 +126,27 @@ def test_decode_kernel_hd80_matches_plain(cuda, lengths, dtype):
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,window,lengths", DECODE_SPLIT_CASES)
+def test_decode_kernel_split_edges_match_plain(cuda, B, S, Hq, Hkv, hd, window,
+                                               lengths, dtype):
+    """Split-KV edges: head dim 256 (gemma3-1b: group 4, window 512),
+    lengths that end inside a split, windows that leave most splits
+    empty, length 0 and length > S."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Hq, hd), generator=g, device=cuda).to(dt)
+    kc, vc = (torch.randn((B, S, Hkv, hd), generator=g, device=cuda).to(dt)
+              for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n = decode_attention.launches
+    got = decode_attention(q, kc, vc, lens, window=window)
+    assert decode_attention.launches == n + 1
+    want = ref.decode_attention_ref(q, kc, vc, lens, window=window)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
 def ssd_inputs(g, B, S, H, P, N, init, dtype, device):
     """tests/test_kernels.py's distribution; x, B, C in ``dtype``."""
     rn = lambda *shape: torch.randn(shape, generator=g, device=device)
@@ -192,6 +225,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="window"):
         flash_attention(q[..., :64], q[:, :, :2, :64], q[:, :, :2, :64],
                         window=0)
+    qb = torch.zeros((1, 8, 4, 65), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):     # strides of 65
+        flash_attention(qb[..., :64], qb[:, :, :2, :64], qb[:, :, :2, :64])
     qd = torch.zeros((2, 4, 64), device=cuda)
     kc = torch.zeros((2, 16, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="int32"):

@@ -33,12 +33,14 @@ FLASH_CASES = [                               # tests/test_kernels.py sweep
     (2, 100, 8, 8, 16, True, None),           # ragged S
     (1, 64, 4, 4, 128, False, None),          # non-causal
     (1, 64, 16, 2, 8, True, 16),              # deep GQA + window
+    (1, 640, 4, 1, 256, True, 512),           # gemma3-1b local layer
 ]
 DECODE_CASES = [
     (2, 256, 4, 2, 64, None),
     (3, 100, 8, 1, 32, None),                 # ragged S
     (2, 512, 4, 4, 128, 128),                 # MHA + window
     (1, 64, 16, 2, 16, None),
+    (2, 640, 4, 1, 256, 512),                 # gemma3-1b local layer
 ]
 RMS_SHAPES = [(8, 64), (2, 17, 128), (100, 256)]
 
