@@ -12,22 +12,26 @@ phases; any failure exits non-zero.
 1. Each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at the full-width shapes of the serving paths plus edge cases,
    with the tolerances of tests/test_kernels.py (fp32 2e-5, bf16 5e-2,
-   the SSD final state 1e-3): rmsnorm; flash and decode attention at
+   the SSD final state 1e-3): rmsnorm at the three paths' widths, odd
+   widths and unaligned rows; flash and decode attention at
    qwen2.5-3b's, zamba2-2.7b's (head dim 80) and gemma3-1b's (head dim
    256, 4 q / 1 KV head, window 512) shapes, ragged S, a window, deep
    GQA, decode lengths 0, 1 and > S, lengths that end inside a split and
    windows that leave most splits empty; ssd_scan at zamba2's
    and mamba2's 500-token prefill (chunk 256), the tests' sweep (ragged
-   S, an init state, chunk 8), S < 8, B = 2 and the served column-slice
-   layout. It times each kernel, its plain version and, where one exists,
-   one PyTorch library call for the same function (never called by the
-   port) as a yardstick; for the attention kernels also each one's
-   device time from torch.profiler (``device_ms``: kernel durations
-   summed, without the host's launch gaps, which CUDA events over
-   back-to-back calls of a few-microsecond kernel measure instead). The
-   attention rows also record their CTA count
-   (decode: the split plan) and the kernel's registers and spills from
-   the ptxas report.
+   S, an init state, chunk 8), S < 8, B = 2, P 8 and 128, N 20, four
+   chunks, the 128-token prompt and the served column-slice layout, each
+   call twice (bit-equal). It times each kernel, its plain version and,
+   where one exists, one PyTorch library call for the same function
+   (never called by the port) as a yardstick: CUDA events over
+   back-to-back calls, and the device time of one call from
+   torch.profiler (``device_ms``: kernel durations summed, without the
+   host's launch gaps, which events over back-to-back calls of a
+   few-microsecond kernel measure instead); rmsnorm also at the zamba2
+   and mamba2 decode rows and a 500-token prompt, with its events time
+   per call beside ``F.rms_norm``'s over 3 repetitions. Each row records
+   its CTA count (decode: the split plan; ssd_scan: each pass) and the
+   kernels' registers and spills from the ptxas report.
 2. qwen2.5-3b (dense) at full width: the port's seeded init (36 layers,
    bf16) registered in a ``HydraRuntime`` (slots 4, max_seq 1024), one
    ``generate`` per prompt (128 and 500 tokens), then six requests
@@ -36,9 +40,12 @@ phases; any failure exits non-zero.
    prefill and first decode logits must match the plain path on the card.
 3. zamba2-2.7b (hybrid: 54 Mamba2 layers, one shared attention block
    applied 9 times) at full width, the same way; it runs all four kernels,
-   ssd_scan 54 times per prefill. A decode-step profile follows.
-4. mamba2-780m (ssm) at full width: both prompts, then four batched
-   requests whose tokens must equal the single-path tokens.
+   ssd_scan 54 times per prefill. A profile of one 500-token prefill
+   (device time by class, the device's busy share) and a decode-step
+   profile follow.
+4. mamba2-780m (ssm) at full width: a 500-token prefill profile, both
+   prompts, then four batched requests whose tokens must equal the
+   single-path tokens.
 5. The reduced closed-loop serve, ``repro_torch.launch.serve``, over one
    tenant each of qwen2.5-3b, mamba2-780m and zamba2-2.7b.
 
@@ -73,8 +80,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}   # tests/test_kernels.py
 QWEN = dict(Hq=16, Hkv=2, hd=128, D=2048)
-ZAMBA = dict(Hq=32, Hkv=32, hd=80, G=9, H=80, P=64, N=64)    # G: shared
-MAMBA = dict(H=48, P=64, N=128)                              # block uses
+ZAMBA = dict(Hq=32, Hkv=32, hd=80, G=9, H=80, P=64, N=64,   # G: shared
+             D=2560)                                         # block uses
+MAMBA = dict(H=48, P=64, N=128, D=1536)
 GEMMA3 = (4, 1, 256)             # gemma3-1b: q heads, KV heads, head dim
 GEMMA3_WINDOW = 512              # its local layers' sliding window
 SSD_CHUNK = 256
@@ -130,6 +138,28 @@ def device_ms(fn, iters: int = 20) -> float:
     return "not measured"
 
 
+def device_ms_by_kernel(fn, keys: tuple, iters: int = 20) -> dict:
+    """Device time of one call of ``fn`` split by kernel: for each of
+    ``keys``, the summed durations of the kernels whose name holds it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(keys, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = next((k for k in keys if k in e.name), None)
+            if key:
+                out[key] += e.time_range.elapsed_us() / 1e3 / iters
+    return out
+
+
 def compare(name: str, got, want, dtype, tol: float | None = None) -> float:
     """max |got - want|; fails unless |got - want| <= tol + tol*|want|
     (tol defaults to the dtype's tolerance)."""
@@ -162,8 +192,6 @@ def bound(nbytes: int, flops: float, dtype) -> tuple:
 # phase 1: each kernel against its plain version
 # ---------------------------------------------------------------------------
 def phase_kernels() -> dict:
-    import torch.nn.functional as F
-
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -175,31 +203,20 @@ def phase_kernels() -> dict:
     out = {}
 
     # ---- rmsnorm: decode rows (4 slots), a 500-token prompt, small rows
-    for shape in [(4, 1, QWEN["D"]), (1, 500, QWEN["D"]), (3, 17, 64)]:
-        for xd, wd in [(f32, f32), (bf16, bf16), (bf16, f32)]:
+    for shape in [(4, 1, QWEN["D"]), (1, 500, QWEN["D"]), (3, 17, 64),
+                  (4, 1, ZAMBA["D"]), (4, 1, MAMBA["D"]), (5, 100),
+                  (13, 2048)]:
+        for xd, wd in [(f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)]:
             x = randn(shape, xd, gen)
             w = (randn(shape[-1:], f32, gen) * 0.1).to(wd)
             compare(f"rmsnorm {shape} x={xd} w={wd}", rmsnorm(x, w),
                     ref.rmsnorm_ref(x, w), xd)
-    x = randn((4, 1, QWEN["D"]), bf16, gen)
+    # rows whose data pointer is 2 bytes off 16: the kernel's scalar variant
+    x = randn((4 * QWEN["D"] + 1,), bf16, gen)[1:].view(4, 1, QWEN["D"])
     w = (randn((QWEN["D"],), f32, gen) * 0.1).to(bf16)
-    err = compare("rmsnorm main-path decode rows", rmsnorm(x, w),
-                  ref.rmsnorm_ref(x, w), bf16)
-    w1 = (1.0 + w.float()).to(bf16)
-    nbytes = 2 * x.numel() * 2 + w.numel() * 2
-    b_ms, b_by = bound(nbytes, 4.0 * x.numel(), bf16)
-    xp = randn((1, 500, QWEN["D"]), bf16, gen)
-    out["rmsnorm"] = dict(
-        shape=list(x.shape), max_abs_err=err,
-        ms=cuda_ms(lambda: rmsnorm(x, w)),
-        plain_ms=cuda_ms(lambda: ref.rmsnorm_ref(x, w)),
-        library_ms=cuda_ms(lambda: F.rms_norm(x, (QWEN["D"],), w1, 1e-5)),
-        bound_ms=b_ms, bound_by=b_by,
-        prefill_shape=list(xp.shape),
-        prefill_ms=cuda_ms(lambda: rmsnorm(xp, w)),
-        prefill_plain_ms=cuda_ms(lambda: ref.rmsnorm_ref(xp, w)),
-        prefill_bound_ms=bound(2 * xp.numel() * 2 + w.numel() * 2,
-                               4.0 * xp.numel(), bf16)[0])
+    compare("rmsnorm unaligned rows", rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+            bf16)
+    out["rmsnorm"] = time_rmsnorm(gen)
 
     # ---- flash attention: the main path's prefill shape, plus the sweep
     H, K, hd = QWEN["Hq"], QWEN["Hkv"], QWEN["hd"]
@@ -282,14 +299,16 @@ def phase_kernels() -> dict:
         lens=(700, 1024))
     out["ssd_scan"] = phase_ssd(gen)
     for name, r in out.items():
-        for tag, t in [("", r)] + [(f" {k}", r[k]) for k in ("hd80", "gemma3")
-                                   if k in r]:
+        for tag, t in [("", r)] + [(f" {k}", v) for k, v in r.items()
+                                   if isinstance(v, dict) and "ms" in v]:
             lib_ms = ("none" if t["library_ms"] is None
                       else f"{t['library_ms']:.4f} ms")
             grid = (f"; device ms: kernel {t['device_ms']}, plain "
                     f"{t['plain_device_ms']}, library "
                     f"{t['library_device_ms']}; {t['ctas']} CTAs, ptxas "
                     f"{t['ptxas']}" if "ctas" in t else "")
+            if "device_ms_by_pass" in t:
+                grid += f"; device ms by pass {t['device_ms_by_pass']}"
             log(f"[kernels] {name}{tag} @ {t['shape']}: kernel "
                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
                 f"{lib_ms}, bound {t['bound_ms']:.5f} ms ({t['bound_by']})"
@@ -322,14 +341,57 @@ def ptxas_usage(stem: str, kernel: str, *parts: str) -> dict:
 
 
 def timings(kern, plain, lib, iters: int) -> dict:
-    """The kernel's, the plain version's and the library call's times:
-    CUDA events over back-to-back calls (``*ms``) and the device time of
-    one call (``*device_ms``)."""
+    """The kernel's, the plain version's and the library call's times
+    (``lib`` None: no library call computes the function): CUDA events
+    over back-to-back calls (``*ms``) and the device time of one call
+    (``*device_ms``)."""
     return dict(ms=cuda_ms(kern, iters=iters),
                 plain_ms=cuda_ms(plain, iters=iters),
-                library_ms=cuda_ms(lib, iters=iters),
+                library_ms=cuda_ms(lib, iters=iters) if lib else None,
                 device_ms=device_ms(kern), plain_device_ms=device_ms(plain),
-                library_device_ms=device_ms(lib))
+                library_device_ms=device_ms(lib) if lib else None)
+
+
+def time_rmsnorm(gen) -> dict:
+    """rmsnorm (bf16 x and w) at the decode rows of the three serving
+    paths and at a 500-token prompt: the kernel, its plain version and
+    ``F.rms_norm`` (with w folded to 1 + w), events and device times;
+    then the events time per call of the kernel and of ``F.rms_norm``
+    over 3 repetitions, in turns. The first shape is the row's headline;
+    the others nest under their labels."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    bf16 = torch.bfloat16
+    rows = {}
+    for label, shape in [("qwen decode", (4, 1, QWEN["D"])),
+                         ("zamba2 decode", (4, 1, ZAMBA["D"])),
+                         ("mamba2 decode", (4, 1, MAMBA["D"])),
+                         ("qwen prefill", (1, 500, QWEN["D"]))]:
+        D = shape[-1]
+        x = randn(shape, bf16, gen)
+        w = (randn((D,), torch.float32, gen) * 0.1).to(bf16)
+        w1 = (1.0 + w.float()).to(bf16)
+        err = compare(f"rmsnorm {label} {shape}", rmsnorm(x, w),
+                      ref.rmsnorm_ref(x, w), bf16)
+        kern = lambda: rmsnorm(x, w)
+        lib = lambda: F.rms_norm(x, (D,), w1, 1e-5)
+        t = timings(kern, lambda: ref.rmsnorm_ref(x, w), lib, iters=30)
+        reps = [dict(kernel_ms=cuda_ms(kern, iters=300),
+                     library_ms=cuda_ms(lib, iters=300)) for _ in range(3)]
+        n = x.numel() // D
+        b_ms, b_by = bound(2 * x.numel() * 2 + D * 2, 4.0 * x.numel(), bf16)
+        nv = next(v for v in (2, 4, 8, 12, 16) if 32 * 8 * v >= D)
+        rows[label] = dict(
+            shape=list(shape), max_abs_err=err, ctas=-(-n // 8),
+            warps=n, ptxas=ptxas_usage("rmsnorm", "rmsnorm_kernel",
+                                       "13__nv_bfloat16S1_", f"Li{nv}E"),
+            **t, events_per_call_3_reps=reps, bound_ms=b_ms, bound_by=b_by)
+    head = rows.pop("qwen decode")
+    head.update(rows)
+    return head
 
 
 def attention_pairs(S: int, causal: bool, window) -> int:
@@ -518,7 +580,7 @@ def phase_ssd(gen) -> dict:
     """ssd_scan against ssd_scan_ref: y at the dtype's tolerance, the fp32
     final state at 1e-3 (tests/test_kernels.py)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import scan_plan, ssd_scan
 
     cases = [  # B, S, H, P, N, chunk, init, strided, what
         (1, 500, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"], SSD_CHUNK, False, False,
@@ -532,6 +594,14 @@ def phase_ssd(gen) -> dict:
         (2, 300, 16, 64, 128, SSD_CHUNK, True, False, "B = 2 + init"),
         (1, 500, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"], SSD_CHUNK, False, True,
          "zamba2 column slices"),
+        (1, 128, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"], 128, False, True,
+         "128-token prompt"),
+        (1, 257, 4, 64, 64, SSD_CHUNK, False, False, "S = 257"),
+        (1, 1024, 4, 64, 64, SSD_CHUNK, False, False, "four chunks"),
+        (2, 200, 4, 64, 128, SSD_CHUNK, True, False, "B = 2 + init N 128"),
+        (1, 300, 4, 8, 64, SSD_CHUNK, False, False, "P = 8"),
+        (1, 300, 4, 128, 128, SSD_CHUNK, True, False, "P = 128 + init"),
+        (1, 77, 3, 32, 20, 64, False, False, "N = 20"),
     ]
     for dt in (torch.float32, torch.bfloat16):
         for B, S, H, P, N, chunk, init, strided, what in cases:
@@ -545,6 +615,9 @@ def phase_ssd(gen) -> dict:
             compare(f"{name} y {dt}", y, yr, dt)
             compare(f"{name} final state {dt}", sf, sr, torch.float32,
                     tol=1e-3)
+            if not torch.equal(ssd_scan(*args, chunk=chunk, init_state=s0),
+                               y):
+                raise AssertionError(f"{name} {dt}: two calls differ")
 
     def timed(H, P, N) -> dict:
         B, S = 1, 500
@@ -555,18 +628,20 @@ def phase_ssd(gen) -> dict:
         err = compare(f"ssd_scan main-path prefill {B},{S},{H},{P} N={N}",
                       kern()[0], plain()[0], torch.bfloat16)
         b_ms, b_by = ssd_bound(B, S, H, P, N, SSD_CHUNK, torch.bfloat16)
+        plan = scan_plan(S, SSD_CHUNK, P, N)
         return dict(shape=[B, S, H, P], N=N, chunk=SSD_CHUNK,
-                    max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                    library_ms=None,
+                    max_abs_err=err, ctas=plan.ctas(B, H, P, N),
+                    ptxas=[ptxas_usage("ssd_scan", k, f"Li{P}E") for k in
+                           ("ssd_chunk_kernel", "ssd_out_kernel")]
+                    + [ptxas_usage("ssd_scan", "ssd_state_kernel")],
+                    **timings(kern, plain, None, iters=30),
+                    device_ms_by_pass=device_ms_by_kernel(
+                        kern, KERNEL_CLASSES["ssd_scan"][1:]),
                     library="none: no PyTorch call computes SSD",
                     bound_ms=b_ms, bound_by=b_by)
 
     out = timed(ZAMBA["H"], ZAMBA["P"], ZAMBA["N"])
     out["mamba2"] = timed(MAMBA["H"], MAMBA["P"], MAMBA["N"])
-    m = out["mamba2"]
-    log(f"[kernels] ssd_scan mamba2 @ {m['shape']} N={m['N']}: kernel "
-        f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
-        f"{m['bound_ms']:.5f} ms ({m['bound_by']})")
     return out
 
 
@@ -741,6 +816,11 @@ def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
             t = torch.tensor([p], dtype=torch.int32, device="cuda")
             prefill_ms[len(p)] = host_ms(lambda: prog.prefill(
                 params, {"tokens": t}), iters=3)
+        if "ssd_scan" in kernels:           # where a 500-token prefill goes
+            t = torch.tensor([prompts[1]], dtype=torch.int32, device="cuda")
+            res["prefill_profile"] = profile_device(
+                lambda: prog.prefill(params, {"tokens": t}), 3,
+                f"{arch} 500-token prefill")
     log(f"{tag} prefill ms by prompt length: {prefill_ms}")
 
     counters = _kernel_counters()
@@ -777,7 +857,8 @@ def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
                 for _ in range(4):
                     b.submit(prompts[0], 24)
                 b.step()                    # admits all four slots
-                res["decode_profile"] = profile_decode(b, steps=8)
+                res["decode_profile"] = profile_device(b.step, 8,
+                                                       f"{arch} decode step")
                 b.run_until_done()
             finally:
                 b.close()
@@ -838,10 +919,19 @@ def host_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_decode(batcher, steps: int) -> dict:
-    """Where a full-width decode step's time goes: torch.profiler over
-    ``steps`` batcher steps (4 active slots), device kernel time by
-    class, the device's busy share of the wall time, kernels per step."""
+KERNEL_CLASSES = {   # profiler kernel-name keys of each hand-written kernel
+    "rmsnorm": ("rmsnorm_kernel", "rmsnorm_scalar_kernel"),
+    "flash_attention": ("flash_fwd", "flash_wgmma"),
+    "decode_attention": ("decode_scores", "decode_pv", "decode_combine"),
+    "ssd_scan": ("ssd_scan_kernel", "ssd_chunk_kernel", "ssd_state_kernel",
+                 "ssd_out_kernel"),
+}
+
+
+def profile_device(fn, steps: int, what: str) -> dict:
+    """Where the time of ``steps`` calls of ``fn`` goes: torch.profiler
+    over them, device kernel time by class, the device's busy share of
+    the wall time, kernels per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -850,7 +940,7 @@ def profile_decode(batcher, steps: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            batcher.step()
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name, n = {}, 0
@@ -859,14 +949,9 @@ def profile_decode(batcher, steps: int) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / steps
             n += 1
-    classes = {"rmsnorm": ("rmsnorm_kernel",),
-               "flash_attention": ("flash_fwd", "flash_wgmma"),
-               "decode_attention": ("decode_scores", "decode_pv",
-                                    "decode_combine"),
-               "ssd_scan": ("ssd_scan_kernel",)}
-    by_class = {c: 0.0 for c in list(classes) + ["gemm", "other"]}
+    by_class = {c: 0.0 for c in list(KERNEL_CLASSES) + ["gemm", "other"]}
     for name, ms in by_name.items():
-        cls = next((c for c, keys in classes.items()
+        cls = next((c for c, keys in KERNEL_CLASSES.items()
                     if any(key in name for key in keys)), None)
         if cls is None:
             low = name.lower()
@@ -879,9 +964,9 @@ def profile_decode(batcher, steps: int) -> dict:
                device_busy_share=busy / wall_ms if n else "not measured",
                kernels_per_step=n / steps, ms_per_step_by_class=by_class,
                top_kernels=sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
-    log(f"[profile] decode step under the profiler: {wall_ms:.2f} ms wall, "
+    log(f"[profile] {what} under the profiler: {wall_ms:.2f} ms wall, "
         f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
-        f"{n / steps:.0f} kernels/step; by class (ms/step) "
+        f"{n / steps:.0f} kernels each; by class (ms each) "
         f"{ {k: round(v, 3) for k, v in by_class.items()} }")
     return res
 

@@ -110,6 +110,13 @@ def kernel(lib: str, name: str, argtypes: list):
     return fn
 
 
+def stream(t: torch.Tensor) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device, as
+    an int, without building a ``torch.cuda.Stream`` object (PyTorch's own
+    generated code reads it the same way)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

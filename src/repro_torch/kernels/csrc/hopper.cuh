@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads, cp.async, and warpgroup matrix multiplies (wgmma) in raw
-// PTX. The wgmma wrappers below list every accumulator register, as the
-// instruction demands; they were written out by a generator for the widths
-// the attention kernels use (n64 for the scores, n16..n256 for P V).
+// TMA tile loads, cp.async, warp-level mma.sync with ldmatrix, and
+// warpgroup matrix multiplies (wgmma) in raw PTX. The wgmma wrappers below
+// list every accumulator register, as the instruction demands; they were
+// written out by a generator for the widths the attention kernels use (n64
+// for the scores, n16..n256 for P V).
 #pragma once
 
 #include <cstdint>
 
 #include <cuda.h>  // CUtensorMap (types only: libcuda is not linked)
+#include <cuda_bf16.h>
 
 namespace hydra {
 
@@ -65,6 +67,57 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N committed cp.async groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- mma.sync: one warp's 16x8x16 bf16 product, and ldmatrix -------------
+// Fragments (g = lane / 4, t = lane % 4; each register holds two bf16, the
+// lower column in the low half): A 16x16 row-major, a0 = (g, 2t..2t+1),
+// a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..); B 16x8,
+// b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g); D 16x8 fp32, d0,d1 =
+// (g, 2t..2t+1), d2,d3 = (g+8, 2t..2t+1).
+// D(16x8) += A(16x16) * B(16x8), fp32 accumulate.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 (16-byte aligned). Without .trans lane l gets
+// (row l/4, cols 2(l%4)..+1) of each matrix; with .trans the transpose,
+// (rows 2(l%4)..+1, col l/4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// (a, b) as two bf16 pairs hi + lo with hi = bf16(v) and lo = bf16(v - hi):
+// hi + lo carries about 16 significant bits of the fp32 value, so two
+// products on the tensor cores stand in for one with an fp32 operand.
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
 }
 
 // ---- wgmma ---------------------------------------------------------------

@@ -145,7 +145,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
              Hkv, hd, plan.chunk, plan.splits, *q.stride()[:2],
              *k_cache.stride()[:3], *v_cache.stride()[:3],
              *out.stride()[:2], scale, win, _build.DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _build.stream(q))
     _build.check(err, "decode_attention")
     with _count_lock:
         decode_attention.launches += 1

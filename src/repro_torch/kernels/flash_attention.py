@@ -93,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              B, S, Hq, Hkv, hd, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], *out.stride()[:3], scale, int(causal), win,
              _build.DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _build.stream(q))
     _build.check(err, "flash_attention")
     with _count_lock:
         flash_attention.launches += 1

@@ -42,7 +42,10 @@ DECODE_SPLIT_CASES = [                        # B, S, Hq, Hkv, hd, window, lengt
     (2, 100, 8, 1, 32, 7, [100, 64]),         # ragged S, one split's edge
     (1, 64, 16, 2, 8, None, [3]),
 ]
-RMS_SHAPES = [(8, 64), (2, 17, 128), (100, 256), (4, 1, 2048)]
+RMS_SHAPES = [(8, 64), (2, 17, 128), (100, 256), (4, 1, 2048),
+              (4, 1, 2560), (4, 1, 1536),     # zamba2, mamba2 decode rows
+              (3, 100),                       # D not a multiple of 8
+              (13, 2048)]                     # rows not a multiple of 8
 SSD_CASES = [                                 # B, S, H, P, N, chunk, init
     (1, 500, 80, 64, 64, 256, False),         # zamba2-2.7b prefill
     (1, 500, 48, 64, 128, 256, False),        # mamba2-780m prefill
@@ -51,6 +54,12 @@ SSD_CASES = [                                 # B, S, H, P, N, chunk, init
     (2, 33, 4, 64, 32, 8, False),
     (1, 5, 8, 16, 16, 5, False),              # S < 8, chunk = S
     (2, 300, 16, 64, 128, 256, True),         # B = 2, two chunks, init
+    (1, 128, 80, 64, 64, 128, False),         # zamba2's 128-token prompt
+    (1, 257, 4, 64, 64, 256, False),          # one row into a second chunk
+    (1, 1024, 4, 64, 64, 256, False),         # four chunks
+    (2, 200, 4, 64, 128, 256, True),          # B = 2, init, N 128
+    (1, 300, 4, 8, 64, 256, False),           # P 8, padded to 16
+    (1, 300, 4, 128, 128, 256, True),         # P 128
 ]
 
 
@@ -214,6 +223,20 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     got = rmsnorm(x, w)
     assert rmsnorm.launches == n + 1
     np.testing.assert_allclose(f32(got), f32(ref.rmsnorm_ref(x, w)),
+                               **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_takes_unaligned_rows(cuda, dtype):
+    """A view whose data pointer is one element off a 16-byte boundary
+    takes the kernel's scalar variant."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    base = torch.randn(4 * 2048 + 1, generator=g, device=cuda)
+    x = base.to(getattr(torch, dtype))[1:].view(4, 1, 2048)
+    w = torch.randn(2048, generator=g, device=cuda) * 0.1
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    np.testing.assert_allclose(f32(rmsnorm(x, w)), f32(ref.rmsnorm_ref(x, w)),
                                **tol(dtype))
 
 

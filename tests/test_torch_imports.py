@@ -1,6 +1,7 @@
-"""repro_torch stands alone: no file of the port, nor chip_smoke.py, imports
-``jax`` or anything of the reference package ``repro``, and importing every
-module of the port leaves ``jax`` unloaded."""
+"""repro_torch stands alone: no file of the port, nor chip_smoke.py or
+chip_ab.py, imports ``jax`` or anything of the reference package
+``repro``, and importing every module of the port leaves ``jax``
+unloaded."""
 import ast
 import json
 import os
@@ -15,7 +16,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def port_files() -> list:
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_ab.py"]
 
 
 def imported_modules(path: Path) -> list:
