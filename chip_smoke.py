@@ -48,9 +48,28 @@ phases; any failure exits non-zero.
    single-path tokens.
 5. The reduced closed-loop serve, ``repro_torch.launch.serve``, over one
    tenant each of qwen2.5-3b, mamba2-780m and zamba2-2.7b.
+6. The platform at full width: two tenants' qwen2.5-3b functions in a
+   ``HydraPlatform`` (pool 2, 16 GiB per runtime) pack into one runtime
+   with the program count of one; one is generated from (a 128-token
+   prompt, 32 new tokens), snapshotted, evicted and restored, and must
+   give the same tokens with no new program, bit-equal weights
+   (checksums), and ``torch.cuda.memory_allocated()`` falling by at
+   least 90% of the weights' bytes at eviction and rising again at
+   restore. Then it is exported, and a fresh process on the same card
+   (this script, ``--restore-child``) imports it and restores it from
+   the snapshot with 0 compiles, at least one disk hit, no kernel library
+   rebuilt and the same tokens. Snapshots live under a temporary
+   directory that is removed at the end.
+7. The cluster at full width: ``HydraCluster`` with two logical nodes on
+   the card and an 8 GiB node budget, so qwen2.5-3b and mamba2-780m of
+   one tenant cannot share a node and the second spills to node 1;
+   mamba2-780m then migrates to node 0 through its snapshot, with the
+   same tokens, no new program, and ``transfer_bytes`` equal to the
+   snapshot's size; both functions serve after it.
 
 Each serving path sets the launch counters to 0 just before its runtime
-run and reads them just after.
+run and reads them just after; the platform and cluster phases count
+theirs under the paths ``platform`` and ``cluster``.
 
 Output: the card's name and power limit first; a ``{"kernels": [...]}``
 line before the last; and as the last line
@@ -64,8 +83,10 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -993,6 +1014,344 @@ def phase_serve() -> dict:
     return {k: s[k] for k in ("requests", "tokens", "wall_s")}
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: the platform and the cluster at full width
+# ---------------------------------------------------------------------------
+GiB = 1 << 30
+
+
+def checksums(params) -> dict:
+    """Per leaf, two sums over its raw 16- or 32-bit words (plain and
+    position-weighted), on the card: equal checksums mean bit-equal leaves
+    for any realistic corruption, without copying 7 GB to the host."""
+    from repro_torch.ft.checkpoint import _flatten
+    out = {}
+    for key, t in _flatten(params).items():
+        v = t.reshape(-1).view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+        s1 = s2 = 0
+        for i in range(0, v.numel(), 1 << 26):
+            c = v[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+            s1 += int(c.sum())
+            s2 += int((c * w).sum())
+        out[key] = (s1, s2)
+    return out
+
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def allocated() -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def build_dir_state() -> dict:
+    """{library file: mtime} of the built kernels: unchanged across a run
+    means no nvcc ran in it."""
+    from repro_torch.kernels import _build
+    return {p.name: p.stat().st_mtime_ns
+            for p in _build.BUILD_DIR.glob("*.so")}
+
+
+def zero_launches() -> dict:
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def check_launches(what: str, counters: dict, kernels: tuple) -> dict:
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"{what}: kernel {name} was never launched")
+    log(f"[{what}] kernel launches: {launches}")
+    return launches
+
+
+def phase_platform(snap_root: str) -> dict:
+    """Phase 6 (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HydraPlatform, LMSpec, PlatformParams
+    from repro_torch.core.arena import tree_bytes
+    from repro_torch.ft.checkpoint import _flatten, dtype_name
+    from repro_torch.launch.serve import make_params
+
+    arch = "qwen2.5-3b"
+    cfg = get_config(arch)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               128).tolist()
+    params = {t: make_params(cfg, seed=i, device="cuda")
+              for i, t in enumerate(("tenantA", "tenantB"))}
+    weight_bytes = tree_bytes(params["tenantA"])
+    sums = checksums(params["tenantA"])
+    leaves = {k: {"shape": list(v.shape), "dtype": dtype_name(v.dtype)}
+              for k, v in _flatten(params["tenantA"]).items()}
+    snap_dir = os.path.join(snap_root, "platform")
+    pp = dict(pool_size=2, runtime_budget_bytes=16 * GiB,
+              snapshot_dir=snap_dir, device="cuda")
+    res = dict(arch=arch, weight_bytes=weight_bytes, **{
+        k: v for k, v in pp.items() if k != "snapshot_dir"})
+    fid = {t: f"{t}/{arch}" for t in params}
+
+    counters = zero_launches()              # this path's run starts here
+    plat = HydraPlatform(PlatformParams(**pp))
+    try:
+        plat.register_function(fid["tenantA"], LMSpec(
+            cfg=cfg, params=params.pop("tenantA"), max_seq=1024, slots=4),
+            tenant="tenantA", eager=True)
+        before = plat.generate(fid["tenantA"], prompt, 32)
+        one_tenant = plat.exe_cache.stats()["compiles"]
+        plat.register_function(fid["tenantB"], LMSpec(
+            cfg=cfg, params=params.pop("tenantB"), max_seq=1024, slots=4),
+            tenant="tenantB", eager=True)
+        plat.generate(fid["tenantB"], prompt, 32)
+        res["placement"] = plat.placement()
+        res["compiles_one_tenant"] = one_tenant
+        res["compiles_two_tenants"] = plat.exe_cache.stats()["compiles"]
+        if len(set(res["placement"].values())) != 1:
+            raise AssertionError(f"platform: two tenants of {arch} did not "
+                                 f"pack into one runtime: {res['placement']}")
+        if res["compiles_two_tenants"] != one_tenant:
+            raise AssertionError("platform: the second tenant built "
+                                 "programs of its own")
+
+        t0 = time.perf_counter()
+        plat.snapshot(fid["tenantA"])
+        res["snapshot_s"] = time.perf_counter() - t0
+        root = plat._record(fid["tenantA"]).snapshot_path
+        res["snapshot_bytes"] = dir_bytes(root)
+        mem0 = allocated()
+        plat.evict(fid["tenantA"])
+        mem1 = allocated()
+        compiles = plat.exe_cache.stats()["compiles"]
+        t0 = time.perf_counter()
+        plat.restore(fid["tenantA"])
+        torch.cuda.synchronize()
+        res["restore_wall_s"] = time.perf_counter() - t0
+        res["restore_s"] = plat.metrics.hists["restore_s"].mean
+        mem2 = allocated()
+        after = plat.generate(fid["tenantA"], prompt, 32)
+        restored = checksums(plat._record(fid["tenantA"]).spec.params)
+        res.update(allocated_before_evict=mem0, allocated_after_evict=mem1,
+                   allocated_after_restore=mem2,
+                   reserved=torch.cuda.memory_reserved(),
+                   evict_freed_share=(mem0 - mem1) / weight_bytes,
+                   tokens=before, launches=check_launches(
+                       "platform", counters, ATTENTION))
+        if after != before:
+            raise AssertionError(f"platform: tokens after restore {after} "
+                                 f"!= before {before}")
+        if plat.exe_cache.stats()["compiles"] != compiles:
+            raise AssertionError("platform: restore built a program")
+        if restored != sums:
+            bad = [k for k in sums if restored[k] != sums[k]]
+            raise AssertionError(f"platform: restored leaves differ: {bad}")
+        if mem0 - mem1 < 0.9 * weight_bytes or mem2 - mem1 < 0.9 * weight_bytes:
+            raise AssertionError(
+                f"platform: memory_allocated {mem0} -> {mem1} at eviction, "
+                f"-> {mem2} at restore; weights are {weight_bytes} bytes")
+        log(f"[platform] {arch} x2 tenants in one runtime "
+            f"({res['placement']}), {one_tenant} programs for one tenant "
+            f"and for two; evict/restore tokens equal, no new program, "
+            f"{len(sums)} leaves bit-equal (checksums)")
+        log(f"[platform] memory_allocated {mem0 / 1e9:.3f} GB -> "
+            f"{mem1 / 1e9:.3f} GB at eviction ({100 * res['evict_freed_share']:.1f}% "
+            f"of the {weight_bytes / 1e9:.3f} GB of weights) -> "
+            f"{mem2 / 1e9:.3f} GB at restore; memory_reserved "
+            f"{res['reserved'] / 1e9:.3f} GB (the caching allocator keeps "
+            f"its blocks)")
+
+        exported = plat.export_function(fid["tenantA"])
+        res["child"] = fresh_process_restore(snap_dir, exported, leaves,
+                                             prompt, pp)
+        if res["child"]["tokens"] != before:
+            raise AssertionError(f"platform: the fresh process's tokens "
+                                 f"{res['child']['tokens']} != {before}")
+    finally:
+        plat.shutdown()
+    gb = res["snapshot_bytes"] / 1e9
+    c = res["child"]
+    log(f"[platform] snapshot {gb:.3f} GB in {res['snapshot_s']:.2f}s "
+        f"({gb / res['snapshot_s']:.2f} GB/s); in-process restore "
+        f"{res['restore_s']:.2f}s ({gb / res['restore_s']:.2f} GB/s; "
+        f"{res['restore_wall_s']:.2f}s with placement); fresh-process "
+        f"restore {c['restore_s']:.2f}s ({gb / c['restore_s']:.2f} GB/s), "
+        f"interpreter start to first token {c['start_to_first_token_s']:.2f}s "
+        f"(imports {c['import_s']:.2f}s)")
+    return res
+
+
+def fresh_process_restore(snap_dir, exported, leaves, prompt, pp) -> dict:
+    """A child process on the same card imports ``exported`` and restores
+    it from the snapshot; it must build no program and no kernel library."""
+    meta = dict(snapshot_dir=snap_dir, leaves=leaves, prompt=prompt,
+                platform={k: v for k, v in pp.items() if k != "snapshot_dir"},
+                **{k: exported[k] for k in ("fid", "tenant", "mem_budget",
+                                            "need_bytes", "invocations",
+                                            "snapshot_path")},
+                max_seq=exported["spec"].max_seq, slots=exported["spec"].slots,
+                arch=exported["spec"].cfg.name)
+    meta_path = os.path.join(snap_dir, "export.json")
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    libs = build_dir_state()
+    t_spawn = time.time()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--restore-child", meta_path, repr(t_spawn)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"fresh-process restore failed:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["wall_s"] = time.time() - t_spawn
+    out["kernel_libraries_rebuilt"] = sorted(
+        k for k, v in build_dir_state().items() if libs.get(k) != v)
+    exe = out["exe_cache"]
+    if exe["compiles"] != 0 or exe["disk_hits"] < 1 or \
+            out["kernel_libraries_rebuilt"]:
+        raise AssertionError(f"fresh-process restore built something: {out}")
+    log(f"[platform] fresh process: compiles {exe['compiles']}, disk hits "
+        f"{exe['disk_hits']}, kernel libraries rebuilt "
+        f"{out['kernel_libraries_rebuilt']}, {out['wall_s']:.2f}s in all")
+    return out
+
+
+def restore_child(meta_path: str, t_spawn: float) -> int:
+    """The fresh process of phase 6: import the exported record, restore
+    it from the snapshot, generate; print one JSON line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HydraPlatform, LMSpec, PlatformParams
+
+    t_import = time.time()
+    with open(meta_path) as f:
+        meta = json.load(f)
+    template = {}
+    for key, leaf in meta["leaves"].items():
+        *head, last = key.split("/")
+        d = template
+        for h in head:
+            d = d.setdefault(h, {})
+        d[last] = torch.empty(leaf["shape"],
+                              dtype=getattr(torch, leaf["dtype"]),
+                              device="meta")
+    spec = LMSpec(cfg=get_config(meta["arch"]), params=None,
+                  max_seq=meta["max_seq"], slots=meta["slots"])
+    plat = HydraPlatform(PlatformParams(snapshot_dir=meta["snapshot_dir"],
+                                        **meta["platform"]))
+    try:
+        plat.import_function(dict(
+            spec=spec, params_spec=template,
+            **{k: meta[k] for k in ("fid", "tenant", "mem_budget",
+                                    "need_bytes", "invocations",
+                                    "snapshot_path")}))
+        plat.restore(meta["fid"])
+        first = plat.generate(meta["fid"], meta["prompt"], 1)
+        t_first = time.time()
+        toks = plat.generate(meta["fid"], meta["prompt"], 32)
+        if toks[:1] != first:
+            raise AssertionError(f"first token {first} != {toks[:1]}")
+        print(json.dumps(dict(
+            tokens=toks, exe_cache=plat.exe_cache.stats(),
+            restore_s=plat.metrics.hists["restore_s"].mean,
+            import_s=t_import - t_spawn,
+            start_to_first_token_s=t_first - t_spawn)))
+    finally:
+        plat.shutdown()
+    return 0
+
+
+def phase_cluster(snap_root: str) -> dict:
+    """Phase 7 (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ClusterParams, HydraCluster, LMSpec,
+                                  PlatformParams, estimate_bytes)
+    from repro_torch.launch.serve import make_params
+
+    archs = ("qwen2.5-3b", "mamba2-780m")
+    rng = np.random.default_rng(1)
+    cfgs = {a: get_config(a) for a in archs}
+    prompt = {a: rng.integers(0, c.vocab_size, 128).tolist()
+              for a, c in cfgs.items()}
+    fid = {a: f"t0/{a}" for a in archs}
+    params = {a: make_params(c, seed=0, device="cuda")
+              for a, c in cfgs.items()}
+    node_bytes = 8 * GiB
+    counters = zero_launches()              # this path's run starts here
+    cl = HydraCluster(ClusterParams(
+        n_nodes=2, node_memory_bytes=node_bytes,
+        snapshot_dir=os.path.join(snap_root, "cluster"),
+        platform=PlatformParams(pool_size=1, runtime_budget_bytes=node_bytes,
+                                device="cuda")))
+    res = dict(n_nodes=2, node_memory_bytes=node_bytes)
+    try:
+        need = {}
+        for a in archs:
+            spec = LMSpec(cfg=cfgs[a], params=params.pop(a), max_seq=1024,
+                          slots=4)
+            need[a] = estimate_bytes(spec)
+            cl.register_function(fid[a], spec, tenant="t0", eager=True)
+            del spec
+        res["estimate_bytes"] = need
+        res["placement"] = {a: cl.placement()[fid[a]] for a in archs}
+        if res["placement"] != {"qwen2.5-3b": 0, "mamba2-780m": 1} or \
+                cl.metrics.counters["place.spill"] != 1:
+            raise AssertionError(f"cluster: placement {res['placement']}, "
+                                 f"metrics {dict(cl.metrics.counters)}")
+        before = {a: cl.generate(fid[a], prompt[a], 32) for a in archs}
+        compiles = cl.exe_cache.stats()["compiles"]
+        a = "mamba2-780m"
+        t0 = time.perf_counter()
+        nbytes = cl.migrate(fid[a], 0)
+        torch.cuda.synchronize()
+        res["migrate_s"] = time.perf_counter() - t0
+        dst = cl.nodes[0].platform._snapshot_root(fid[a])
+        res.update(migrated=a, transfer_bytes=nbytes,
+                   snapshot_bytes=dir_bytes(dst),
+                   modeled_transfer_s=cl.metrics.hists["transfer_s"].mean,
+                   # the parts of migrate_s: the source's snapshot write
+                   # and the destination's read and copy to the card
+                   export_snapshot_s=cl.nodes[1].platform.metrics.hists[
+                       "snapshot_s"].mean,
+                   import_restore_s=cl.nodes[0].platform.metrics.hists[
+                       "restore_s"].mean,
+                   committed_after={n.idx: n.committed for n in cl.nodes})
+        after = {a: cl.generate(fid[a], prompt[a], 32) for a in archs}
+        res.update(tokens=before, placement_after=cl.placement(),
+                   compiles=compiles, launches=check_launches(
+                       "cluster", counters, ATTENTION + ("ssd_scan",)))
+        if after != before:
+            raise AssertionError(f"cluster: tokens after migration {after} "
+                                 f"!= before {before}")
+        if cl.exe_cache.stats()["compiles"] != compiles:
+            raise AssertionError("cluster: migration built a program")
+        if not (nbytes == res["snapshot_bytes"]
+                == cl.metrics.counters["transfer_bytes"]):
+            raise AssertionError(f"cluster: transfer_bytes {nbytes} != "
+                                 f"snapshot {res['snapshot_bytes']}")
+        if cl.placement()[fid[a]] != 0:
+            raise AssertionError("cluster: migration did not move it")
+    finally:
+        cl.shutdown()
+    log(f"[cluster] qwen2.5-3b ({need['qwen2.5-3b'] / 1e9:.2f} GB estimate) "
+        f"on node 0, mamba2-780m ({need['mamba2-780m'] / 1e9:.2f} GB) "
+        f"spilled to node 1 under an {node_bytes / 1e9:.2f} GB node budget; "
+        f"migrated to node 0 in {res['migrate_s']:.2f}s "
+        f"({nbytes / 1e9:.3f} GB snapshot, "
+        f"{nbytes / 1e9 / res['migrate_s']:.2f} GB/s; of it snapshot write "
+        f"{res['export_snapshot_s']:.2f}s, restore "
+        f"{res['import_restore_s']:.2f}s; modeled transfer "
+        f"{res['modeled_transfer_s']:.2f}s at 10 Gb/s); both serve the same "
+        f"tokens after it, no new program (migrate, as the reference's, "
+        f"does not re-check the destination's budget: committed "
+        f"{res['committed_after']})")
+    return res
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:19"),
@@ -1042,6 +1401,19 @@ def main() -> int:
             arch, kernels, n_batched, logits=logits, profile=profile)
         log(f"[{arch}] path done in {time.perf_counter() - t0:.1f}s")
     REPORT["serve"] = phase_serve()
+    torch.cuda.empty_cache()        # between phases, off any request path
+    snap_root = tempfile.mkdtemp(prefix="hydra-chip-smoke-")
+    try:
+        t0 = time.perf_counter()
+        REPORT["platform"] = phase_platform(snap_root)
+        log(f"[platform] phase done in {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(snap_root, "platform"))
+        t0 = time.perf_counter()
+        REPORT["cluster"] = phase_cluster(snap_root)
+        log(f"[cluster] phase done in {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(snap_root, ignore_errors=True)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     REPORT["card"] = nvidia_smi()
@@ -1054,6 +1426,8 @@ def main() -> int:
         r = REPORT["kernels"][name]
         by_path = {arch: p["launches"][name]
                    for arch, p in REPORT["paths"].items()}
+        for path in ("platform", "cluster"):
+            by_path[path] = REPORT[path]["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1071,4 +1445,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--restore-child"]:
+        sys.exit(restore_child(sys.argv[2], float(sys.argv[3])))
     sys.exit(main())

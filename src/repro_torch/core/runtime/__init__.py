@@ -310,8 +310,10 @@ class HydraRuntime:
         return toks
 
     def _janitor_loop(self):
-        while not self._shutdown.is_set():
-            time.sleep(min(1.0, self.arena_pool.ttl_s / 4))
+        # wait on the shutdown event, not sleep: shutdown (which a platform
+        # runs inline when an evicted function empties a runtime) must not
+        # wait out the janitor's period
+        while not self._shutdown.wait(min(1.0, self.arena_pool.ttl_s / 4)):
             self.arena_pool.evict_idle()
 
     # ------------------------------------------------------------------

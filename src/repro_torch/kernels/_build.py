@@ -110,6 +110,12 @@ def kernel(lib: str, name: str, argtypes: list):
     return fn
 
 
+def loaded_libraries() -> list:
+    """File names of the kernel libraries this process has loaded."""
+    with _lock:
+        return sorted(Path(lib._name).name for lib in _libs.values())
+
+
 def stream(t: torch.Tensor) -> int:
     """The raw ``cudaStream_t`` of the current stream on ``t``'s device, as
     an int, without building a ``torch.cuda.Stream`` object (PyTorch's own

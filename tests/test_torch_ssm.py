@@ -547,7 +547,7 @@ def test_reused_slot_gives_single_path_tokens(arch):
 
 
 def test_serve_mixed_families_on_cpu():
-    stats = serve.main(["--device", "cpu", "--archs",
+    stats = serve.main(["--device", "cpu", "--pool", "0", "--archs",
                         "qwen2.5-3b,mamba2-780m,zamba2-2.7b", "--tenants",
                         "3", "--requests", "6", "--max-new", "3",
                         "--prompt-len", "5"])
