@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc/`` (one nvcc per source, all started together) and then runs five
+csrc/`` (one nvcc per source, all started together) and then runs eight
 phases; any failure exits non-zero.
 
 1. Each kernel against its plain PyTorch version on the card, in bf16 and
@@ -66,10 +66,39 @@ phases; any failure exits non-zero.
    mamba2-780m then migrates to node 0 through its snapshot, with the
    same tokens, no new program, and ``transfer_bytes`` equal to the
    snapshot's size; both functions serve after it.
+8. The live serving gateway, replaying ``benchmarks/data/azure_sample.csv``
+   (36 functions, 18 owners, 5,262 invocations over 30 trace minutes)
+   open-loop on the card, in three legs:
+   (a) ``run_validation`` at the reference settings (compress 60, pool 4,
+       mem_scale 1/64, round trip, attribution): the cold-start, p99 and
+       round-trip gates must pass; then the first 3 trace minutes replay
+       with every request traced, the spans are exported as Chrome JSON
+       and ``python -m repro_torch.core.tracing --check`` must accept it;
+   (b) the same validation at full size (mem_scale 1.0, compress 120):
+       every arena is the trace's own allocated size on the card and the
+       runtime budget is the simulator's 2 GiB ``runtime_cap``; the gates,
+       zero invoke errors, and the growth of
+       ``torch.cuda.max_memory_allocated`` over the replay above 0 and at
+       most the runtimes booted times 2 GiB;
+   (c) ``python -m repro_torch.launch.serve --gateway --nodes 2`` as a
+       child process at compress 120 with ``--calibration``: every
+       request served or dropped, no errors, a calibration that
+       ``repro_torch.core.calibrate`` loads, and the balancer's stats.
+   In every leg (and the traced replay) the replay's warm-up must have
+   reached every executable cache on the card, and the compiles on the
+   clock, each cache's count less its count when the clock started
+   (leg c reads them from its calibration's meta), must be 0.
+   Each leg reports requests, drops, cold starts, pool claims, p50/p99
+   (trace s and wall ms), per-request overhead, the traced per-phase
+   p50/p99, live-vs-sim deltas, compiles after the warm-up, and the
+   calibration's boot/register/claim/restore costs. The gateway's
+   emulated function is one affine program, so the four kernels'
+   counters over the phase are reported and expected to be 0 (not a
+   gate).
 
 Each serving path sets the launch counters to 0 just before its runtime
-run and reads them just after; the platform and cluster phases count
-theirs under the paths ``platform`` and ``cluster``.
+run and reads them just after; the platform, cluster and gateway phases
+count theirs under the paths ``platform``, ``cluster`` and ``gateway``.
 
 Output: the card's name and power limit first; a ``{"kernels": [...]}``
 line before the last; and as the last line
@@ -1352,6 +1381,248 @@ def phase_cluster(snap_root: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the live serving gateway
+# ---------------------------------------------------------------------------
+AZURE = os.path.join(ROOT, "benchmarks", "data", "azure_sample.csv")
+GATEWAY_PHASES = ("pool_claim", "register", "arena_acquire.cold",
+                  "arena_acquire.zeroed", "arena_acquire.reuse", "dispatch",
+                  "compute")
+# the probe's wall-second costs and the SimParams field each calibrates
+CALIBRATION_COSTS = {"runtime_boot_s": "hydra_runtime_cold_s",
+                     "register_s": "fn_register_s",
+                     "pool_claim_s": "pool_claim_s",
+                     "restore_s": "snapshot_restore_s"}
+
+
+def check_warmed(leg: str, warm: dict, compiles: int) -> int:
+    """The replay's warm-up must have reached every executable cache on
+    the card, and nothing may compile on the clock; returns the compiles
+    after the warm-up, as measured."""
+    after = compiles - sum(warm["compiles_before_clock"])
+    log(f"[gateway {leg}] warm-up: {warm['warmed']}/{warm['caches']} "
+        f"caches warmed; {compiles} compiles, {after} after the warm-up")
+    if warm["caches"] < 1 or warm["warmed"] != warm["caches"] or after:
+        raise AssertionError(f"gateway {leg}: warm-up {warm} left "
+                             f"{after} compiles on the clock")
+    return after
+
+
+def leg_numbers(leg: str, live: dict, extras: dict, compress: float) -> dict:
+    """The numbers one gateway leg reports, from the live ``SimResult``
+    summary and the replay's extras."""
+    phases = (extras.get("tracing") or {}).get("phases", {})
+    costs = extras.get("probe", {}).get("wall_costs", {})
+    compiles = extras["exe_cache"]["compiles"]
+    after = check_warmed(leg, extras["warm"], compiles)
+    return {
+        "requests": live["requests"], "dropped": live["dropped"],
+        "submitted": extras["submitted"],
+        "cold_runtime": live["cold_runtime"],
+        "pool_claims": live["pool_claims"],
+        "p50_s": live["p50_s"], "p99_s": live["p99_s"],
+        "p50_wall_ms": live["p50_s"] / compress * 1e3,
+        "p99_wall_ms": live["p99_s"] / compress * 1e3,
+        "request_overhead_ms": extras["request_overhead_ms"],
+        "phases_ms": {k: {q: phases[k][q] for q in ("count", "p50_ms",
+                                                    "p99_ms")}
+                      for k in GATEWAY_PHASES if k in phases},
+        "compiles": compiles, "compiles_after_warmup": after,
+        "warm": extras["warm"],
+        "calibration_wall_s": {k: (costs[k]["mean"] if costs.get(k) else None)
+                               for k in CALIBRATION_COSTS},
+        "boots_in_window": (costs.get("runtime_boot_s") or {}).get("count", 0),
+        "errors": extras["errors"][:3], "n_errors": len(extras["errors"]),
+        "mean_mem_mb": live["mean_mem_mb"], "peak_mem_mb": live["peak_mem_mb"],
+        "ops_per_gb_s": live["ops_per_gb_s"],
+        "wall_s": extras["wall_s"], "late_arrivals": extras["late_arrivals"],
+    }
+
+
+def log_leg(name: str, r: dict) -> None:
+    log(f"[gateway {name}] {r['requests']} served + {r['dropped']} dropped "
+        f"of {r['submitted']}; cold_runtime {r['cold_runtime']}, "
+        f"pool_claims {r['pool_claims']}; p50 {r['p50_s']:.4f} trace s "
+        f"({r['p50_wall_ms']:.2f} wall ms), p99 {r['p99_s']:.4f} trace s "
+        f"({r['p99_wall_ms']:.2f} wall ms); request overhead "
+        f"{r['request_overhead_ms']}; compiles {r['compiles']} "
+        f"({r['compiles_after_warmup']} after the warm-up)")
+    for k, v in r.get("phases_ms", {}).items():
+        log(f"[gateway {name}]   {k}: n={v['count']} p50 {v['p50_ms']} ms "
+            f"p99 {v['p99_ms']} ms")
+    log(f"[gateway {name}] calibration (wall s): {r['calibration_wall_s']}")
+    if "deltas" in r:
+        log(f"[gateway {name}] live - sim: "
+            + ", ".join(f"{k} {d['live']} - {d['sim']}"
+                        for k, d in r["deltas"].items()))
+
+
+def validated_leg(name: str, trace, **kw) -> dict:
+    """One ``run_validation`` leg on the card; every gate must pass."""
+    from repro_torch.gateway import format_report, run_validation
+    report = run_validation(trace, device="cuda", round_trip=True,
+                            attribute=True, **kw)
+    log(format_report(report))
+    if not report["ok"]:
+        raise AssertionError(f"gateway {name}: {report['failures']}")
+    rt = report["round_trip"]
+    for gate in (report["gates"]["cold_runtime"], report["gates"]["p99_s"],
+                 rt["cold_runtime"], rt["p99_s"]):
+        if not gate["passed"]:
+            raise AssertionError(f"gateway {name}: gate failed: {gate}")
+    r = leg_numbers(name, report["live"], report["extras"], kw["compress"])
+    r.update(gates=report["gates"], round_trip=rt,
+             deltas={k: d for k, d in report["deltas"].items()},
+             attribution=report.get("attribution"),
+             calibration=report["calibration"]["measured"])
+    log_leg(name, r)
+    return r
+
+
+def traced_export(trace_dir: str) -> dict:
+    """The first 3 trace minutes replayed with every request traced; the
+    Chrome export must pass the tracing module's own checker, run as a
+    child process."""
+    from repro_torch.core import HydraPlatform, PlatformParams
+    from repro_torch.core.tracing import Tracer, export_chrome
+    from repro_torch.gateway import ReplayConfig, load_trace, replay_trace
+    trace = load_trace(AZURE, max_minutes=3)
+    plat = HydraPlatform(PlatformParams(
+        pool_size=4, runtime_budget_bytes=32 << 20, arena_ttl_s=10.0 / 60,
+        n_workers=4, device="cuda"))
+    tracer = Tracer(1.0, seed=0)
+    try:
+        live, extras = replay_trace(
+            trace, plat, ReplayConfig(compress=60.0, n_workers=8,
+                                      autoscale=False), tracer=tracer)
+    finally:
+        plat.shutdown()
+    check_warmed("a traced", extras["warm"], extras["exe_cache"]["compiles"])
+    path = os.path.join(trace_dir, "gateway_spans.json")
+    doc = export_chrome(tracer, path, meta={"trace_file": AZURE})
+    out = subprocess.run([sys.executable, "-m", "repro_torch.core.tracing",
+                          "--check", path], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=os.path.join(
+                             ROOT, "src")))
+    log(f"[gateway a] traced replay of {live.summary()['requests']} "
+        f"requests: {len(doc['traceEvents'])} trace events; --check rc "
+        f"{out.returncode}: {out.stdout.strip()[-300:]}")
+    if out.returncode != 0 or extras["errors"]:
+        raise AssertionError(f"gateway: span export check failed: "
+                             f"{out.stdout[-1000:]} {out.stderr[-1000:]} "
+                             f"{extras['errors'][:3]}")
+    return {"requests": live.summary()["requests"],
+            "trace_events": len(doc["traceEvents"]),
+            "check_rc": out.returncode}
+
+
+def cluster_leg(tmp: str) -> dict:
+    """Leg (c): the normal entry point on a two-node cluster, as a child
+    process."""
+    from repro_torch.core.calibrate import load_calibration
+    cal = os.path.join(tmp, "cal.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--gateway",
+           "--trace-file", AZURE, "--compress", "120", "--nodes", "2",
+           "--snapshot-dir", os.path.join(tmp, "snap"), "--calibration", cal]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=os.path
+                                               .join(ROOT, "src")))
+    wall = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    for line in lines:
+        if line.startswith("[gateway]"):
+            log(f"[gateway c] {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"gateway c: serve exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    # the summary is the JSON object the child prints last
+    start = max(i for i, line in enumerate(lines) if line == "{")
+    live = json.loads("\n".join(lines[start:]))
+    m = re.search(r"served (\d+)/(\d+) requests", out.stdout)
+    served, submitted = int(m.group(1)), int(m.group(2))
+    balancer = [ln for ln in lines if ln.startswith("[gateway] balancer:")]
+    if served != live["requests"] or \
+            live["requests"] + live["dropped"] != submitted:
+        raise AssertionError(f"gateway c: {live['requests']} served + "
+                             f"{live['dropped']} dropped != {submitted}")
+    if any(ln.startswith("[gateway] errors") for ln in lines):
+        raise AssertionError("gateway c: invoke errors")
+    measured = load_calibration(cal)          # raises on a bad document
+    with open(cal) as f:
+        meta = json.load(f)["meta"]
+    compiles = meta["exe_cache"]["compiles"]
+    after = check_warmed("c", meta["warm"], compiles)
+    r = {"requests": live["requests"], "dropped": live["dropped"],
+         "submitted": submitted, "cold_runtime": live["cold_runtime"],
+         "pool_claims": live["pool_claims"], "transfers": live["transfers"],
+         "p50_s": live["p50_s"], "p99_s": live["p99_s"],
+         "p50_wall_ms": live["p50_s"] / 120 * 1e3,
+         "p99_wall_ms": live["p99_s"] / 120 * 1e3,
+         "request_overhead_ms": meta["request_overhead_ms"],
+         "compiles": compiles, "compiles_after_warmup": after,
+         "warm": meta["warm"],
+         "calibration": measured,
+         "calibration_wall_s": {k: (measured[f] / 120 if f in measured
+                                    else None)
+                                for k, f in CALIBRATION_COSTS.items()},
+         "balancer": balancer[0] if balancer else None,
+         "n_nodes": live["n_nodes"], "mean_mem_mb": live["mean_mem_mb"],
+         "child_wall_s": wall}
+    if not balancer:
+        raise AssertionError("gateway c: no balancer stats printed")
+    log_leg("c", r)
+    return r
+
+
+def phase_gateway(tmp: str) -> dict:
+    """Phase 8 (module docstring)."""
+    from repro_torch.gateway import load_trace
+    trace = load_trace(AZURE)
+    d = trace.describe()
+    log(f"[gateway] trace: {d['invocations']} invocations, {d['functions']} "
+        f"functions, {d['tenants']} tenants over {d['duration_s']:.0f} s")
+    counters = zero_launches()              # this path's run starts here
+    res = {"trace": d}
+    t0 = time.perf_counter()
+    res["a"] = validated_leg("a", trace, compress=60.0, pool_size=4,
+                             mem_scale=1.0 / 64)
+    res["a"]["traced_export"] = traced_export(tmp)
+    res["a"]["leg_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    b = validated_leg("b", trace, compress=120.0, pool_size=4, mem_scale=1.0)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    # the initial pool of 4 plus every boot inside the replay window, each
+    # with the simulator's 2 GiB runtime_cap as its budget
+    boots = 4 + b["boots_in_window"]
+    b.update(max_allocated_growth_bytes=growth, runtimes_booted=boots,
+             budget_bound_bytes=boots * 2 * GiB,
+             leg_s=time.perf_counter() - t0)
+    log(f"[gateway b] max_memory_allocated grew {growth / 2**20:.1f} MiB "
+        f"over the replay; {boots} runtimes booted x 2 GiB = "
+        f"{boots * 2} GiB bound")
+    if not 0 < growth <= boots * 2 * GiB:
+        raise AssertionError(f"gateway b: device memory growth {growth} "
+                             f"outside (0, {boots} x 2 GiB]")
+    if b["n_errors"]:
+        raise AssertionError(f"gateway b: invoke errors {b['errors']}")
+    res["b"] = b
+    t0 = time.perf_counter()
+    res["c"] = cluster_leg(tmp)
+    res["c"]["leg_s"] = time.perf_counter() - t0
+    res["launches"] = check_launches("gateway", counters, ())
+    log("[gateway] the four kernels' launches over the phase are expected "
+        "to be 0: the gateway's emulated function is one affine program "
+        "(leg c's child process keeps its own counters)")
+    return res
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:19"),
@@ -1412,6 +1683,11 @@ def main() -> int:
         t0 = time.perf_counter()
         REPORT["cluster"] = phase_cluster(snap_root)
         log(f"[cluster] phase done in {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(snap_root, "cluster"))
+        t0 = time.perf_counter()
+        REPORT["gateway"] = phase_gateway(snap_root)
+        log(f"[gateway] phase done in {time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(snap_root, ignore_errors=True)
 
@@ -1426,7 +1702,7 @@ def main() -> int:
         r = REPORT["kernels"][name]
         by_path = {arch: p["launches"][name]
                    for arch, p in REPORT["paths"].items()}
-        for path in ("platform", "cluster"):
+        for path in ("platform", "cluster", "gateway"):
             by_path[path] = REPORT[path]["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

@@ -169,6 +169,8 @@ class HydraCluster:
                                                         f"node{i}")
             plat = HydraPlatform(plat_params, exe_cache=self.exe_cache)
             self.nodes.append(_NodeState(idx=i, platform=plat))
+        # the one device every node's platform runs on (one template)
+        self.device = self.nodes[0].platform.device
         self._node_of: dict[str, int] = {}
         # fids with a migration in flight; request routing waits on the
         # condition so no invocation lands in the export->import window

@@ -19,12 +19,14 @@ module path mirrors ``repro.core.runtime``.
 """
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
 from concurrent.futures import Future
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.arena import ArenaPool, tree_bytes, tree_leaves
@@ -52,6 +54,105 @@ def registration_budget(spec, prog=None) -> tuple:
         cache = prog.cache_bytes(spec.slots, spec.max_seq)
         return tree_bytes(spec.params) + cache, cache
     raise TypeError(type(spec))
+
+
+# jax's canonical dtypes with x64 off: a host payload of a 64-bit type
+# enters an executable as its 32-bit counterpart, and goes no further
+_CANONICAL = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+@functools.lru_cache(maxsize=None)
+def _torch_dtype_of(np_dtype) -> torch.dtype:
+    try:
+        dt = torch.from_numpy(np.empty(0, np_dtype)).dtype
+    except TypeError:
+        raise TypeError(f"argument of numpy dtype {np_dtype} has no "
+                        f"tensor type") from None
+    return _CANONICAL.get(dt, dt)
+
+
+def _leaf_sig(x):
+    """(shape, canonical dtype, is a host leaf) of a call argument leaf."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), _CANONICAL.get(x.dtype, x.dtype), False
+    if isinstance(x, (np.ndarray, np.generic)):
+        return np.shape(x), _torch_dtype_of(x.dtype), True
+    # Python scalars are jax's weakly typed 32-bit values
+    if isinstance(x, bool):
+        return (), torch.bool, True
+    if isinstance(x, int):
+        return (), torch.int32, True
+    if isinstance(x, float):
+        return (), torch.float32, True
+    raise TypeError(f"argument of type {type(x).__name__} is not an array")
+
+
+class _Leaf:
+    """The registered shape and dtype of one argument leaf."""
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, x):
+        self.shape, self.dtype = tuple(x.shape), x.dtype
+
+
+def _template(tree):
+    # jax flattens a dict in sorted key order, whatever its insertion order
+    if isinstance(tree, dict):
+        return {k: _template(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_template(v) for v in tree)
+    return None if tree is None else _Leaf(tree)
+
+
+def _tree_error() -> TypeError:
+    return TypeError("call arguments' tree differs from the one the "
+                     "program was built for")
+
+
+def pinned_device(device: torch.device) -> torch.device:
+    """``device`` with the index a bare ``cuda`` stands for now."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def arg_conformer(example_args, device: torch.device):
+    """The call-argument contract of a callable's program, as a jax
+    executable lowered on ``example_args``' shapes and dtypes keeps it:
+    the returned function moves host leaves (numpy arrays, Python
+    scalars) to ``device`` in the registered dtype after jax's x64-off
+    canonicalisation (float64 -> float32, int64 -> int32), passes a
+    tensor that already matches through uncopied, and raises TypeError
+    for a different tree, shape or (canonical) dtype. Dicts match by
+    key, in any order, as jax's sorted flattening matches them."""
+    device = pinned_device(device)
+
+    def walk(t, x):
+        if isinstance(t, _Leaf):
+            shape, dtype, host = _leaf_sig(x)
+            if shape != t.shape or dtype != t.dtype:
+                raise TypeError(
+                    f"argument {dtype}{list(shape)} differs from the "
+                    f"registered {t.dtype}{list(t.shape)}")
+            if host:
+                return torch.as_tensor(x, dtype=t.dtype, device=device)
+            if x.device != device or x.dtype != t.dtype:
+                return x.to(device, t.dtype)
+            return x
+        if isinstance(t, dict):
+            if not isinstance(x, dict) or x.keys() != t.keys():
+                raise _tree_error()
+            return {k: walk(v, x[k]) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            if type(x) is not type(t) or len(x) != len(t):
+                raise _tree_error()
+            return type(t)(walk(v, y) for v, y in zip(t, x))
+        if x is not None:
+            raise _tree_error()
+        return None
+
+    template = _template(example_args)
+    return lambda args: walk(template, args)
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -124,18 +225,23 @@ class HydraRuntime:
         shapes_key = tuple(
             (tuple(x.shape), str(x.dtype))
             for x in tree_leaves((spec.params, spec.example_args)))
-        key = ("callable", spec.name, shapes_key)
+        dev = self.device
+        # the program moves host payloads to this device, so it is part
+        # of what the program is
+        key = ("callable", spec.name, shapes_key, str(pinned_device(dev)))
         raw = spec.fn
 
         def build():
+            conform = arg_conformer(spec.example_args, dev)
+
             def invoke(params, args):
+                args = conform(args)
                 with torch.no_grad():
                     return raw(params, args)
             return invoke
 
         entry = self.exe_cache.get_or_compile(key, build, fid=fid)
         nb = max(spec.arena_bytes, 8)
-        dev = self.device
         # the factory mints a slab at most once per pooled arena (cold
         # path only); warm claims reuse pooled device memory
         factory = lambda: {"scratch": torch.zeros((nb // 4,),

@@ -282,3 +282,52 @@ def test_serve_through_cluster_of_two_nodes(tmp_path):
     # a 1 MB node holds one reduced function: the second spills to node 1
     assert [n["functions_placed"] for n in stats["nodes"]] == [1, 1]
     assert stats["exe_cache"]["compiles"] == 4
+
+
+def test_migrate_over_commits_destination_as_reference_does(tmp_path):
+    """``migrate`` does not re-check the destination's placement budget,
+    in the reference as in the port: moving a function into a node that
+    is already near its budget leaves that node over-committed. Pinned in
+    both packages, so that changing it is a visible decision."""
+    import jax.numpy as jnp
+
+    from repro.core import CallableSpec as JCallableSpec
+    from repro.core import ClusterParams as JClusterParams
+    from repro.core import HydraCluster as JHydraCluster
+    from repro.core import PlatformParams as JPlatformParams
+    from repro.core.platform import estimate_bytes as jestimate_bytes
+
+    def jspec(name):
+        return JCallableSpec(
+            name=name, fn=lambda p, a: {"y": a["x"] * p["w"] + 1.0},
+            example_args={"x": jnp.ones(64)},
+            params={"w": jnp.full((64,), 2.0)}, arena_bytes=1 * MB)
+
+    def over_commit(cluster_cls, params_cls, plat_cls, make_spec, need,
+                    root):
+        cap = 2 * need + need // 2
+        cl = cluster_cls(params_cls(
+            n_nodes=2, node_memory_bytes=cap, snapshot_dir=str(root),
+            platform=plat_cls(pool_size=1, runtime_budget_bytes=32 * MB,
+                              **({"device": "cpu"}
+                                 if plat_cls is PlatformParams else {}))))
+        try:
+            for fid in ("t0/a", "t0/b", "t1/c"):
+                cl.register_function(fid, make_spec(fid[-1]),
+                                     tenant=fid[:2])
+            full = cl.placement()["t0/a"]
+            assert cl.placement()["t0/b"] == full
+            assert cl.placement()["t1/c"] != full
+            cl.migrate("t1/c", full)
+            assert cl.placement()["t1/c"] == full
+            committed = cl.nodes[full].committed
+            assert committed == 3 * need > cap
+            return committed / need
+        finally:
+            cl.shutdown()
+
+    got = over_commit(HydraCluster, ClusterParams, PlatformParams, spec,
+                      estimate_bytes(spec()), tmp_path / "port")
+    want = over_commit(JHydraCluster, JClusterParams, JPlatformParams, jspec,
+                       jestimate_bytes(jspec("a")), tmp_path / "ref")
+    assert got == want == 3

@@ -68,5 +68,6 @@ print(json.dumps({"mods": mods,
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["jax"] == [] and res["repro"] == []
     for mod in ("repro_torch.core.runtime", "repro_torch.kernels.ops",
-                "repro_torch.launch.serve", "repro_torch.models.convert"):
+                "repro_torch.launch.serve", "repro_torch.models.convert",
+                "repro_torch.gateway", "repro_torch.gateway.validate"):
         assert mod in res["mods"]

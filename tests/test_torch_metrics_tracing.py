@@ -1,22 +1,18 @@
 """The assertions of tests/test_metrics.py and tests/test_tracing.py, run
-against the port's copies ``repro_torch.core.metrics`` and
-``repro_torch.core.tracing`` (``port_tests``): thread-safe counters and
-histograms, the reservoir bound, span conservation, deterministic head
-sampling, the Chrome export checker, the flight recorder, attribution.
-
-Two tracing tests replay a trace through the gateway, which comes to the
-port with queue 1 item 8 (the next slice); they are left out here, and
-the platform's own spans (``pool_claim``, ``register``, ``restore``) are
-held in tests/test_torch_platform.py."""
+against the port's copies ``repro_torch.core.metrics``,
+``repro_torch.core.tracing`` and ``repro_torch.gateway`` (``port_tests``):
+thread-safe counters and histograms, the reservoir bound, span
+conservation, deterministic head sampling, the Chrome export checker,
+the flight recorder, attribution, and the two tests that replay a trace
+through the gateway (phase conservation over a live replay, the SLO drop
+that fires a flight dump). Their platform is pinned to the CPU: the port
+runs on CUDA unless a device is given."""
 from port_tests import bind, port_tests
-
-GATEWAY_TESTS = ("test_live_replay_phases_conserve_and_export_validates",
-                 "test_gateway_slo_drop_fires_flight_dump")
 
 bind(globals(), port_tests("test_metrics"))
 bind(globals(), port_tests(
-    "test_tracing", exclude=GATEWAY_TESTS,
-    drop_lines=("from repro.gateway import ReplayConfig, replay_trace",)))
+    "test_tracing",
+    replace=(("PlatformParams(", 'PlatformParams(device="cpu", '),)))
 
 
 def test_port_copies_are_the_ones_tested():
@@ -24,3 +20,5 @@ def test_port_copies_are_the_ones_tested():
         "Metrics"].__module__ == "repro_torch.core.metrics"
     assert test_sampling_edge_rates.__globals__[  # noqa: F821
         "Tracer"].__module__ == "repro_torch.core.tracing"
+    assert test_gateway_slo_drop_fires_flight_dump.__globals__[  # noqa: F821
+        "replay_trace"].__module__ == "repro_torch.gateway.replay"

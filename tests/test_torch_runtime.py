@@ -16,6 +16,7 @@ from repro.configs import get_config as jget_config
 from repro.core import HydraRuntime as JRuntime
 from repro.core import LMSpec as JLMSpec
 from repro.models.programs import ModelProgram as JProgram
+from port_tests import bind, port_tests
 from repro_torch.configs import get_config
 from repro_torch.core import (CallableSpec, ContinuousBatcher, ExecutableCache,
                               FunctionNotRegisteredError, HydraOOMError,
@@ -325,6 +326,16 @@ def test_token_bucket_burst_then_empty():
     assert [tb.try_take() for _ in range(8)] == [True] * 5 + [False] * 3
 
 
+# the reference's TokenBucket tests (tests/test_scheduler.py), run against
+# the port's copy: the gateway's admission control rests on the bucket.
+# The batcher tests there need the reference's lm_runtime fixture.
+bind(globals(), port_tests("test_scheduler", include=(
+    "test_burst_then_empty", "test_refill_caps_at_burst",
+    "test_fractional_take_and_refill_rate",
+    "test_contention_grants_exactly_burst_with_no_refill",
+    "test_contention_with_refill_never_exceeds_budget")))
+
+
 # ---------------------------------------------------------------------------
 def test_generate_tokens_equal_reference_runtime():
     """Greedy tokens from the port's runtime equal the reference runtime's
@@ -363,14 +374,104 @@ def test_serve_closed_loop_on_cpu():
     assert stats["arena"]["arena.cold"] == 2      # one slab per batcher
 
 
-@pytest.mark.parametrize("flags", [["--gateway", "--pool", "2"],
-                                   ["--gateway", "--nodes", "2"],
-                                   ["--gateway"]])
-def test_serve_unported_modes_exit_with_error(flags, capsys):
-    # --pool and --nodes serve since the platform slice (tests of them in
-    # test_torch_platform.py and test_torch_cluster.py); the gateway is
-    # still to be ported, whatever stack it would drive
+@pytest.mark.parametrize("flags", [["--round-trip", "--pool", "2"],
+                                   ["--trace-file", "x.csv", "--nodes", "2"],
+                                   ["--attribute"]])
+def test_serve_gateway_only_flags_require_gateway(flags, capsys):
+    # every mode is ported (the gateway's tests are in
+    # test_torch_gateway.py); a gateway-only flag without --gateway
+    # exits 2, as in the reference
     with pytest.raises(SystemExit) as e:
         serve.main(["--device", "cpu", *flags])
     assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "require(s) --gateway" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# The callable's argument contract: what the reference's executable,
+# lowered on example_args' shapes and dtypes, does with each payload for
+# "x". Every payload dict is built with its keys in the other order than
+# example_args ({"x", "s"}): jax matches dict leaves by sorted key
+PAYLOADS = {
+    "numpy_f32": lambda: np.full((64,), 3.0, np.float32),
+    "shape_1": lambda: np.full((1,), 3.0, np.float32),
+    "numpy_f64": lambda: np.full((64,), 3.0, np.float64),
+    "numpy_i64": lambda: np.full((64,), 3, np.int64),
+    "wrong_dtype_i32": lambda: np.full((64,), 3, np.int32),
+    "wrong_dtype_f16": lambda: np.full((64,), 3.0, np.float16),
+    "python_float": lambda: 3.0,
+    "python_list": lambda: [3.0] * 64,
+}
+# the second leaf, of the same shape and dtype as "x": were leaves matched
+# by insertion order, "x" and "s" would swap silently
+S = np.arange(64, dtype=np.float32) % 5
+
+
+def _affine(params, args):
+    return {"y": args["x"] * params["w"] + params["b"] + args["s"]}
+
+
+def _outcome(invoke):
+    try:
+        y = invoke()["y"]
+    except Exception as e:          # the exception type is the outcome
+        return type(e)
+    return np.asarray(y)
+
+
+@pytest.mark.parametrize("name", sorted(PAYLOADS) + ["missing_key"])
+def test_callable_payload_matches_reference(name):
+    import jax.numpy as jnp
+    from repro.core import CallableSpec as JCallableSpec
+    # dyadic weights: x * w + b + s is exact, whether XLA fuses it into an
+    # FMA or torch rounds the product first, so the results compare
+    # bit-equal
+    w = np.arange(-16, 48, dtype=np.float32) / 4
+    b = np.arange(64, dtype=np.float32) % 7
+
+    def payload():
+        if name == "missing_key":
+            return {"x": np.full((64,), 3.0, np.float32)}
+        return {"s": S.copy(), "x": PAYLOADS[name]()}
+    jrt = JRuntime(memory_budget_bytes=1 << 30, janitor=False)
+    rt = make_rt()
+    try:
+        jrt.register_function("f", JCallableSpec(
+            name="affine", fn=_affine,
+            example_args={"x": jnp.ones((64,), jnp.float32),
+                          "s": jnp.ones((64,), jnp.float32)},
+            params={"w": jnp.asarray(w), "b": jnp.asarray(b)}))
+        rt.register_function("f", CallableSpec(
+            name="affine", fn=_affine,
+            example_args={"x": torch.ones(64), "s": torch.ones(64)},
+            params={"w": torch.from_numpy(w), "b": torch.from_numpy(b)}))
+        want = _outcome(lambda: jrt.invoke("f", payload()))
+        got = _outcome(lambda: rt.invoke("f", payload()))
+    finally:
+        jrt.shutdown()
+        rt.shutdown()
+    if isinstance(want, type):
+        assert got is want is TypeError
+    else:
+        assert got.dtype == want.dtype == np.float32
+        assert got.shape == want.shape and np.array_equal(got, want)
+
+
+def test_callable_matching_tensor_is_passed_uncopied():
+    rt = make_rt()
+    seen = []
+
+    def fn(params, args):
+        seen.append(args["x"])
+        return {"y": args["x"] * params["w"]}
+    try:
+        rt.register_function("f", CallableSpec(
+            name="probe", fn=fn, example_args={"x": torch.ones(64)},
+            params={"w": torch.full((64,), 2.0)}))
+        x = torch.full((64,), 3.0)
+        rt.invoke("f", {"x": x})
+        assert seen[-1] is x
+        rt.invoke("f", {"x": np.ones(64, np.float32)})
+        assert seen[-1] is not x and seen[-1].device == x.device
+    finally:
+        rt.shutdown()
