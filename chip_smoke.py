@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc/`` (one nvcc per source, all started together) and then runs eight
-phases; any failure exits non-zero.
+phases (the serving paths of phases 2-4 now include five more
+architectures, 4a-4e); any failure exits non-zero.
 
 1. Each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at the full-width shapes of the serving paths plus edge cases,
@@ -17,7 +18,11 @@ phases; any failure exits non-zero.
    qwen2.5-3b's, zamba2-2.7b's (head dim 80) and gemma3-1b's (head dim
    256, 4 q / 1 KV head, window 512) shapes, ragged S, a window, deep
    GQA, decode lengths 0, 1 and > S, lengths that end inside a split and
-   windows that leave most splits empty; ssd_scan at zamba2's
+   windows that leave most splits empty; the new families' shapes
+   (granite-moe-1b-a400m hd 64 group 2, musicgen-large hd 64 group 1,
+   dbrx-132b hd 128 group 6, internvl2-76b hd 128 group 8) with timed
+   rows, and rmsnorm rows of d 1024, 1152, 6144 and 8192 (the last two
+   wider than the register buckets: the scalar variant); ssd_scan at zamba2's
    and mamba2's 500-token prefill (chunk 256), the tests' sweep (ragged
    S, an init state, chunk 8), S < 8, B = 2, P 8 and 128, N 20, four
    chunks, the 128-token prompt and the served column-slice layout, each
@@ -46,8 +51,26 @@ phases; any failure exits non-zero.
 4. mamba2-780m (ssm) at full width: a 500-token prefill profile, both
    prompts, then four batched requests whose tokens must equal the
    single-path tokens.
+4a. granite-moe-1b-a400m (moe: 24 layers, 32 experts, top-8) as phase 2,
+   its logits held as zamba2's (a near-tie in routing can flip between
+   the kernel and the plain path), with a decode-step profile and, over
+   the 128-token prompt, the choices dropped at capacity per layer and
+   the routing decisions that differ between the two paths.
+4b. gemma3-1b (26 layers, hd 256, window 512 on 5 of 6 layers, tied
+   262,144-row vocabulary) as phase 2.
+4c. dbrx-132b at full width cut to 4 of its 40 layers (28.5 GB of bf16
+   weights; 16 experts of 6144 x 10752, top-4) as phase 2, its logits
+   held to the plain path by relative RMS alone (no fp32 copy fits).
+4d. internvl2-76b (vlm) at full width cut to 8 of its 80 layers, through
+   ``ModelProgram``: 4 rows of 256 prefix embeddings + 244 tokens, then
+   32 decode steps at 4 slots, kernel path against plain path by
+   relative RMS; then a tokens-only ``generate`` through ``HydraRuntime``.
+4e. musicgen-large (audio, 48 layers) the same way on 4 rows of 128 frame
+   embeddings and one frame per decode step; its ``LMSpec`` must be
+   refused at ``register_function`` with the budget untouched.
 5. The reduced closed-loop serve, ``repro_torch.launch.serve``, over one
-   tenant each of qwen2.5-3b, mamba2-780m and zamba2-2.7b.
+   tenant each of qwen2.5-3b, mamba2-780m, zamba2-2.7b and
+   granite-moe-1b-a400m.
 6. The platform at full width: two tenants' qwen2.5-3b functions in a
    ``HydraPlatform`` (pool 2, 16 GiB per runtime) pack into one runtime
    with the program count of one; one is generated from (a 128-token
@@ -135,6 +158,12 @@ ZAMBA = dict(Hq=32, Hkv=32, hd=80, G=9, H=80, P=64, N=64,   # G: shared
 MAMBA = dict(H=48, P=64, N=128, D=1536)
 GEMMA3 = (4, 1, 256)             # gemma3-1b: q heads, KV heads, head dim
 GEMMA3_WINDOW = 512              # its local layers' sliding window
+# the new families' attention: q heads, KV heads, head dim, and the
+# (batch, prompt) of their prefill and the layers of their full depth
+GRANITE_MOE = (16, 8, 64)        # group 2
+MUSICGEN = (32, 32, 64)          # group 1
+DBRX = (48, 8, 128)              # group 6: decode's G=8 instantiation
+INTERNVL = (64, 8, 128)          # group 8
 SSD_CHUNK = 256
 REPORT = {}
 
@@ -255,7 +284,8 @@ def phase_kernels() -> dict:
     # ---- rmsnorm: decode rows (4 slots), a 500-token prompt, small rows
     for shape in [(4, 1, QWEN["D"]), (1, 500, QWEN["D"]), (3, 17, 64),
                   (4, 1, ZAMBA["D"]), (4, 1, MAMBA["D"]), (5, 100),
-                  (13, 2048)]:
+                  (13, 2048), (4, 1, 1024), (4, 1, 1152), (4, 1, 6144),
+                  (4, 1, 8192), (4, 500, 8192)]:
         for xd, wd in [(f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)]:
             x = randn(shape, xd, gen)
             w = (randn(shape[-1:], f32, gen) * 0.1).to(wd)
@@ -276,7 +306,10 @@ def phase_kernels() -> dict:
              (2, 100, 8, 8, 16, True, None), (1, 64, 4, 4, 128, False, None),
              (1, 64, 16, 2, 8, True, 16), (2, 333, 8, 2, 128, True, None),
              (1, 640, *GEMMA3, True, GEMMA3_WINDOW),
-             (2, 200, *GEMMA3, True, None)]
+             (2, 200, *GEMMA3, True, None),
+             (1, 500, *GRANITE_MOE, True, None), (4, 128, *MUSICGEN, True,
+                                                  None),
+             (1, 500, *DBRX, True, None), (2, 500, *INTERNVL, True, None)]
     for dt in (f32, bf16):
         for B, S, hq, hkv, d, causal, win in cases:
             q = randn((B, S, hq, d), dt, gen)
@@ -306,7 +339,12 @@ def phase_kernels() -> dict:
               (3, 1024, H, K, hd, None, [45, 77, 1000]),   # ends mid-split
               (2, 1024, H, K, hd, 20, [1000, 33]),    # most splits empty
               (4, 1024, *GEMMA3, GEMMA3_WINDOW, [700, 1024, 0, 1500]),
-              (2, 1024, *GEMMA3, None, [144, 516])]
+              (2, 1024, *GEMMA3, None, [144, 516]),
+              (4, 1024, *GRANITE_MOE, None, [0, 1, 700, 1500]),
+              (4, 1024, *MUSICGEN, None, [160, 33, 1024, 1]),
+              (4, 1024, *DBRX, None, [0, 1, 700, 1500]),
+              (4, 1024, *DBRX, None, [532, 45, 1000, 77]),
+              (4, 1024, *INTERNVL, None, [532, 1, 1024, 700])]
     for dt in (f32, bf16):
         for B, S, hq, hkv, d, win, lens in dcases:
             q = randn((B, hq, d), dt, gen)
@@ -347,6 +385,23 @@ def phase_kernels() -> dict:
         *(randn((26, 4, 1024, hkv, d), bf16, gen) for _ in range(2)),
         "decode gemma3 hd256 window 512 step", window=GEMMA3_WINDOW,
         lens=(700, 1024))
+    # the new families' prefill and decode shapes: granite-moe-1b-a400m
+    # (hd 64, group 2), musicgen-large (hd 64, group 1), dbrx-132b (hd
+    # 128, group 6) and internvl2-76b (hd 128, group 8), each over a slab's
+    # layer slices at full depth
+    for label, (hq, hkv, d), (B, S), L in [
+            ("granite-moe", GRANITE_MOE, (1, 500), 24),
+            ("musicgen", MUSICGEN, (4, 128), 48),
+            ("dbrx", DBRX, (1, 500), 40),
+            ("internvl", INTERNVL, (4, 500), 80)]:
+        out["flash_attention"][label] = time_flash(
+            *(randn((B, S, h, d), bf16, gen) for h in (hq, hkv, hkv)),
+            f"flash {label} hd{d} group {hq // hkv}")
+        out["decode_attention"][label] = time_decode(
+            randn((4, hq, d), bf16, gen),
+            *(randn((L, 4, 1024, hkv, d), bf16, gen) for _ in range(2)),
+            f"decode {label} hd{d} group {hq // hkv} step")
+        torch.cuda.empty_cache()
     out["ssd_scan"] = phase_ssd(gen)
     for name, r in out.items():
         for tag, t in [("", r)] + [(f" {k}", v) for k, v in r.items()
@@ -419,7 +474,11 @@ def time_rmsnorm(gen) -> dict:
     for label, shape in [("qwen decode", (4, 1, QWEN["D"])),
                          ("zamba2 decode", (4, 1, ZAMBA["D"])),
                          ("mamba2 decode", (4, 1, MAMBA["D"])),
-                         ("qwen prefill", (1, 500, QWEN["D"]))]:
+                         ("qwen prefill", (1, 500, QWEN["D"])),
+                         ("granite-moe decode", (4, 1, 1024)),
+                         ("gemma3 decode", (4, 1, 1152)),
+                         ("dbrx decode", (4, 1, 6144)),
+                         ("internvl decode", (4, 1, 8192))]:
         D = shape[-1]
         x = randn(shape, bf16, gen)
         w = (randn((D,), torch.float32, gen) * 0.1).to(bf16)
@@ -433,11 +492,15 @@ def time_rmsnorm(gen) -> dict:
                      library_ms=cuda_ms(lib, iters=300)) for _ in range(3)]
         n = x.numel() // D
         b_ms, b_by = bound(2 * x.numel() * 2 + D * 2, 4.0 * x.numel(), bf16)
-        nv = next(v for v in (2, 4, 8, 12, 16) if 32 * 8 * v >= D)
+        # the register buckets hold rows of up to 32 lanes x 16 pieces of 8
+        # bf16; a wider row takes the scalar variant
+        nv = next((v for v in (2, 4, 8, 12, 16) if 32 * 8 * v >= D), None)
+        variant = ("rmsnorm_kernel", "13__nv_bfloat16S1_", f"Li{nv}E") \
+            if nv else ("rmsnorm_scalar_kernel", "13__nv_bfloat16S1_")
         rows[label] = dict(
             shape=list(shape), max_abs_err=err, ctas=-(-n // 8),
-            warps=n, ptxas=ptxas_usage("rmsnorm", "rmsnorm_kernel",
-                                       "13__nv_bfloat16S1_", f"Li{nv}E"),
+            warps=n, variant=variant[0],
+            ptxas=ptxas_usage("rmsnorm", *variant),
             **t, events_per_call_3_reps=reps, bound_ms=b_ms, bound_by=b_by)
     head = rows.pop("qwen decode")
     head.update(rows)
@@ -718,7 +781,7 @@ def step_bytes(cfg, params, prog, slots: int, max_seq: int) -> tuple:
     from repro_torch.models.transformer import hybrid_groups
 
     weights = tree_bytes(params)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings and "embed" in params:
         embed = params["embed"]["tok"]
         weights -= embed.numel() * embed.element_size()
     if cfg.family == "hybrid":
@@ -779,6 +842,118 @@ def rel_rms(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def check_rel_rms(what: str, k, r) -> dict:
+    """Kernel-path logits ``k`` within 5e-2 of the plain path's ``r`` in
+    relative RMS (the bf16 tolerance); the elementwise max difference is
+    reported."""
+    d, max_abs = rel_rms(k, r), float((k.float() - r.float()).abs().max())
+    log(f"[{what}] logits: kernel vs plain rel RMS {d:.3e} (max abs "
+        f"{max_abs:.3e})")
+    if not (torch.isfinite(k).all() and d <= TOL[torch.bfloat16]):
+        raise AssertionError(f"{what} logits: kernel vs plain rel RMS "
+                             f"{d:.3e} (limit 5e-2), or non-finite")
+    return dict(rel_rms=d, max_abs=max_abs)
+
+
+def logits_rms(prog, params, prompt, arch) -> dict:
+    """Kernel path against plain path by relative RMS alone, for an moe
+    model whose fp32 copy would not fit on the card beside it. The plain
+    path replays the kernel path's experts (see logits_fp32 for why); the
+    distances with each path's own routing are reported (``free``)."""
+    (pre_k, pre_r), (dec_k, dec_r), nxt = first_logits(prog, params, prompt)
+    free = dict(prefill=rel_rms(pre_k, pre_r), decode=rel_rms(dec_k, dec_r))
+    log(f"[{arch}] logits rel RMS, kernel vs plain, each path's own routing "
+        f"(not gated): {free}")
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        with routing_log() as routed:
+            pre_k, dec_k = prompt_logits(prog, params, toks, nxt)
+        with replay_experts(routed.calls), plain_path():
+            pre_r, dec_r = prompt_logits(prog, params, toks, nxt)
+    pre = check_rel_rms(f"{arch} prefill, same experts", pre_k, pre_r)
+    dec = check_rel_rms(f"{arch} first decode, same experts", dec_k, dec_r)
+    return dict(prefill_logits_err=pre["max_abs"],
+                decode_logits_err=dec["max_abs"],
+                prefill_logits_rel_rms=pre["rel_rms"],
+                decode_logits_rel_rms=dec["rel_rms"], free=free)
+
+
+class routing_log:
+    """Every ``moe.route`` call while inside: (gate_idx, choice_slot,
+    capacity) per layer, in call order."""
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._route = [], moe.route
+
+        def route(p, xg, cfg, C):
+            r = self._route(p, xg, cfg, C)
+            self.calls.append((r.gate_idx, r.choice_slot, C))
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+
+class replay_experts:
+    """Inside, the i-th ``moe.top_k`` call returns the experts of
+    ``calls[i]`` (a routing_log of another run of the same inputs) with
+    this run's probabilities: that run's routing, replayed."""
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._top_k, it = moe.top_k, iter(self.calls)
+
+        def top_k(probs, K):
+            idx = next(it)[0]
+            return probs.gather(-1, idx), idx
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k = self._top_k
+
+
+def moe_routing(prog, params, prompt, arch) -> dict:
+    """Over one prefill of ``prompt``: the choices dropped at capacity in
+    each layer on the kernel path, and the routing decisions (a token's
+    set of top-k experts) that differ between the kernel path and the
+    plain path, per layer."""
+    E = prog.cfg.moe.num_experts
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        with routing_log() as kern:
+            prog.prefill(params, {"tokens": toks})
+        with routing_log() as plain, plain_path():
+            prog.prefill(params, {"tokens": toks})
+    dropped, tokens_differ, choices_differ = [], [], []
+    for (ik, sk, C), (ip, _, _) in zip(kern.calls, plain.calls):
+        dropped.append(int((sk == E * C).sum()))
+        ek, ep = ik.sort(-1).values, ip.sort(-1).values
+        differ = (ek != ep)
+        tokens_differ.append(int(differ.any(-1).sum()))
+        # choices of the kernel path that the plain path did not make
+        hit = (ek[..., :, None] == ep[..., None, :]).any(-1)
+        choices_differ.append(int((~hit).sum()))
+    C = kern.calls[0][2]
+    res = dict(tokens=len(prompt), capacity=C,
+               choices_per_layer=len(prompt) * prog.cfg.moe.top_k,
+               dropped_per_layer=dropped,
+               tokens_routed_differently_per_layer=tokens_differ,
+               choices_differing_per_layer=choices_differ)
+    log(f"[{arch}] {len(prompt)}-token prefill routing: capacity {C}; "
+        f"choices dropped per layer {dropped} (of "
+        f"{res['choices_per_layer']}); tokens whose experts differ, kernel "
+        f"vs plain path, per layer {tokens_differ}; differing choices "
+        f"{choices_differ}")
+    return res
+
+
 def logits_fp32(prog, params, prompt, arch) -> dict:
     """Kernel path against plain path for a deep bf16 model, where bf16
     rounding noise (one-ulp flips of the SSD output, fp32 vs bf16 softmax
@@ -787,7 +962,12 @@ def logits_fp32(prog, params, prompt, arch) -> dict:
     5e-2 of the plain path's in relative RMS, and be at least as close as
     the plain path's (up to 1.25x) to an fp32 run of the same weights
     through the plain versions. The elementwise max difference is
-    reported."""
+    reported. For an moe model the two bf16 paths replay the fp32 run's
+    experts (replay_experts): rounding flips a near-tie in routing on any
+    path, and one flipped expert moves a token's logits more than every
+    kernel's rounding together, so without the replay the check would
+    measure which path flipped the same way as the fp32 run. Their
+    distances with their own routing are reported beside (``free``)."""
     import dataclasses
 
     from repro_torch.models.programs import ModelProgram
@@ -797,13 +977,24 @@ def logits_fp32(prog, params, prompt, arch) -> dict:
     cast = lambda t: {k: cast(v) for k, v in t.items()} \
         if isinstance(t, dict) else t.float()
     p32 = cast(params)
-    with torch.no_grad(), plain_path():
-        toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
-        pre_t, cache_t = prog32.prefill(p32, {"tokens": toks})
-        dec_t, _ = prog32.decode_step(p32, grow_cache(cache_t, 32),
-                                      {"tokens": nxt})
-    del p32, cache_t
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    with torch.no_grad(), plain_path(), routing_log() as routed:
+        pre_t, dec_t = prompt_logits(prog32, p32, toks, nxt)
+    del p32
     out = {}
+    if prog.cfg.moe is not None:
+        out["free"] = {what: dict(kernel_vs_plain=rel_rms(k, r),
+                                  kernel_vs_fp32=rel_rms(k, t),
+                                  plain_vs_fp32=rel_rms(r, t))
+                       for what, k, r, t in (("prefill", pre_k, pre_r, pre_t),
+                                             ("decode", dec_k, dec_r, dec_t))}
+        log(f"[{arch}] logits with each path's own routing (not gated): "
+            f"{out['free']}")
+        with torch.no_grad(), replay_experts(routed.calls):
+            pre_k, dec_k = prompt_logits(prog, params, toks, nxt)
+        with torch.no_grad(), replay_experts(routed.calls), plain_path():
+            pre_r, dec_r = prompt_logits(prog, params, toks, nxt)
+        log(f"[{arch}] both bf16 paths replay the fp32 run's experts:")
     for what, k, r, t in (("prefill", pre_k, pre_r, pre_t),
                           ("first decode", dec_k, dec_r, dec_t)):
         d, ek, er = rel_rms(k, r), rel_rms(k, t), rel_rms(r, t)
@@ -824,42 +1015,72 @@ def logits_fp32(prog, params, prompt, arch) -> dict:
     return out
 
 
-def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
-                  logits: str | None, profile: bool) -> dict:
-    """One architecture's serving path at full width, from the port's
-    seeded bf16 init: optionally the prefill and first decode logits,
-    kernel path against plain path (``logits``: "direct" or "fp32", see
-    logits_direct and logits_fp32); then register (slots 4, max_seq
-    1024), one ``generate`` per prompt (128 and 500 tokens, 32 new), and
-    ``n_batched`` requests through one ``ContinuousBatcher``, whose tokens
-    must equal the single-path tokens. The launch counters are set to 0
-    just before the runtime run and read just after; each of ``kernels``
-    must have moved."""
+def prompt_logits(prog, params, toks, nxt) -> tuple:
+    """(prefill logits of ``toks``, logits of one decode step of ``nxt``
+    against that prefill's own cache grown by 32 rows)."""
+    pre, cache = prog.prefill(params, {"tokens": toks})
+    dec, _ = prog.decode_step(params, grow_cache(cache, 32), {"tokens": nxt})
+    return pre, dec
+
+
+def full_width(arch: str, layers: int | None = None):
+    """(config, program, seeded bf16 params, report) of ``arch`` at full
+    width; ``layers`` cuts the depth."""
+    import dataclasses
+
     from repro_torch.configs import get_config
-    from repro_torch.core import ContinuousBatcher, HydraRuntime, LMSpec
     from repro_torch.core.arena import tree_bytes
     from repro_torch.models.programs import ModelProgram
 
     cfg = get_config(arch)
-    tag = f"[{arch}]"
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     prog = ModelProgram(cfg)
     t0 = time.perf_counter()
     params = prog.init(0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()        # the fp32 draws' blocks
     param_bytes = tree_bytes(params)
-    log(f"{tag} {cfg.family}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"vocab {cfg.vocab_size}, {param_bytes / 1e9:.3f} GB of bf16 weights "
-        f"drawn in {init_s:.1f}s")
+    cut = f" (cut from {get_config(arch).n_layers})" if layers else ""
+    log(f"[{arch}] {cfg.family}: {cfg.n_layers} layers{cut}, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {param_bytes / 1e9:.3f} GB "
+        f"of bf16 weights drawn in {init_s:.1f}s")
+    res = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+               layers_cut_from=get_config(arch).n_layers if layers else None,
+               init_s=init_s, param_bytes=param_bytes)
+    return cfg, prog, params, res
 
+
+def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
+                  logits: str | None, profile: bool,
+                  layers: int | None = None) -> dict:
+    """One architecture's serving path at full width (``layers`` cuts the
+    depth), from the port's seeded bf16 init: optionally the prefill and
+    first decode logits, kernel path against plain path (``logits``:
+    "direct", "fp32" or "rms", see logits_direct, logits_fp32 and
+    logits_rms), and for an moe model the routing of the 128-token
+    prompt (moe_routing); then register (slots 4, max_seq 1024), one
+    ``generate`` per prompt (128 and 500 tokens, 32 new), and
+    ``n_batched`` requests through one ``ContinuousBatcher``, whose tokens
+    must equal the single-path tokens. The launch counters are set to 0
+    just before the runtime run and read just after; each of ``kernels``
+    must have moved."""
+    from repro_torch.core import ContinuousBatcher, HydraRuntime, LMSpec
+
+    cfg, prog, params, res = full_width(arch, layers)
+    param_bytes = res["param_bytes"]
+    tag = f"[{arch}]"
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (128, 500)]
-    res = dict(arch=cfg.name, family=cfg.family, init_s=init_s,
-               param_bytes=param_bytes)
     if logits == "direct":
         res.update(logits_direct(prog, params, prompts[0], arch))
     elif logits == "fp32":
         res.update(logits_fp32(prog, params, prompts[0], arch))
+    elif logits == "rms":
+        res.update(logits_rms(prog, params, prompts[0], arch))
+    if cfg.moe is not None:
+        res["routing"] = moe_routing(prog, params, prompts[0], arch)
     prefill_ms = {}
     with torch.no_grad():
         for p in prompts:
@@ -876,7 +1097,8 @@ def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
     counters = _kernel_counters()
     for fn in counters.values():
         fn.launches = 0                     # this path's run starts here
-    rt = HydraRuntime(device="cuda", memory_budget_bytes=16 << 30)
+    rt = HydraRuntime(device="cuda", memory_budget_bytes=max(
+        16 << 30, param_bytes + (4 << 30)))
     try:
         t0 = time.perf_counter()
         spec = LMSpec(cfg=cfg, params=params, max_seq=1024, slots=4)
@@ -953,6 +1175,123 @@ def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
         f"its bound {res['step_bound_ms']:.3f} ms ({weights / 1e9:.3f} GB "
         f"of weights read + {state / 1e9:.3f} GB of SSM state read and "
         f"written, / 3.35 TB/s); decode-only {res['decode_tok_s']:.1f} tok/s")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_frontend(arch: str, layers: int | None = None) -> dict:
+    """A family whose inputs hold embeddings, at full width (``layers``
+    cuts the depth), through ``ModelProgram``: a vlm prefills 4 rows of
+    its ``frontend_tokens`` prefix embeddings before 500 - that many
+    tokens and decodes on tokens; an audio model prefills 4 rows of 128
+    frame embeddings and decodes on one frame each (embeddings seeded, at
+    the token table's scale). 32 decode steps at 4 slots follow, each
+    timed. Then the runtime: a vlm registers in a ``HydraRuntime`` and
+    generates from tokens alone, as the reference serves it; an audio
+    model's ``LMSpec`` must be refused at ``register_function`` with the
+    budget untouched. The launch counters are set to 0 just before the
+    kernel path's run and read just after; rmsnorm, flash and decode
+    attention must have moved. The plain path then runs the same inputs:
+    the prefill logits and every decode step's logits must lie within
+    5e-2 of it in relative RMS."""
+    from repro_torch.core import HydraRuntime, LMSpec
+
+    cfg, prog, params, res = full_width(arch, layers)
+    B, D, n_steps = 4, cfg.d_model, 32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(0)
+    emb = lambda *shape: randn(shape, torch.bfloat16, gen) * D ** -0.5
+    toks = lambda *shape: torch.tensor(
+        rng.integers(0, cfg.vocab_size, shape), dtype=torch.int32,
+        device="cuda")
+    if cfg.family == "audio":
+        pre = {"embeds": emb(B, 128, D)}
+        steps = [{"embeds": emb(B, 1, D)} for _ in range(n_steps)]
+    else:
+        ft = cfg.frontend_tokens
+        pre = {"embeds": emb(B, ft, D), "tokens": toks(B, 500 - ft)}
+        steps = [{"tokens": toks(B, 1)} for _ in range(n_steps)]
+
+    def run():
+        """(prefill logits, each decode step's logits, step ms)."""
+        logits, cache = prog.prefill(params, pre)
+        cache = grow_cache(cache, n_steps)
+        out, ms = [], []
+        for batch in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec, cache = prog.decode_step(params, cache, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(dec)
+        return logits, out, ms
+
+    counters = zero_launches()              # this path's run starts here
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        pre_k, dec_k, step_ms = run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        prefill_ms = host_ms(lambda: prog.prefill(params, pre), iters=2)
+    rt = HydraRuntime(device="cuda", memory_budget_bytes=res["param_bytes"]
+                      + (4 << 30))
+    try:
+        spec = LMSpec(cfg=cfg, params=params, max_seq=1024, slots=4)
+        if cfg.family == "audio":
+            try:
+                rt.register_function(arch, spec)
+            except TypeError as e:
+                refusal = str(e)
+            else:
+                raise AssertionError(f"{arch}: an audio LMSpec registered")
+            if rt.budget.used or len(rt.registry):
+                raise AssertionError(f"{arch}: refused registration left "
+                                     f"{rt.budget.used} bytes reserved")
+            res.update(refused=refusal, budget_used_after=rt.budget.used)
+            log(f"[{arch}] LMSpec refused at register_function: {refusal}; "
+                f"budget used {rt.budget.used}")
+        else:
+            rt.register_function(arch, spec)
+            prompt = rng.integers(0, cfg.vocab_size, 128).tolist()
+            t0 = time.perf_counter()
+            gen_toks = rt.generate(arch, prompt, max_new_tokens=32)
+            res.update(generate_s=time.perf_counter() - t0,
+                       generate_tokens=gen_toks)
+            if len(gen_toks) != 32 or not all(
+                    0 <= t < cfg.vocab_size for t in gen_toks):
+                raise AssertionError(f"{arch}: generate gave {gen_toks}")
+            log(f"[{arch}] tokens-only generate through HydraRuntime: 32 "
+                f"tokens in {res['generate_s']:.2f}s: {gen_toks[:8]}...")
+    finally:
+        rt.shutdown()
+    launches = check_launches(arch, counters, ATTENTION)
+
+    with torch.no_grad(), plain_path():
+        pre_r, dec_r, _ = run()
+    pre_chk = check_rel_rms(f"{arch} prefill", pre_k, pre_r)
+    dec_rms = [rel_rms(k, r) for k, r in zip(dec_k, dec_r)]
+    dec_chk = check_rel_rms(f"{arch} decode step {int(np.argmax(dec_rms))}",
+                            dec_k[int(np.argmax(dec_rms))],
+                            dec_r[int(np.argmax(dec_rms))])
+    weights, _ = step_bytes(cfg, params, prog, 4, 1024)
+    med = float(np.median(step_ms))
+    res.update(
+        launches=launches, prefill_rows=B,
+        prefill_positions=sum(t.shape[1] for t in pre.values()),
+        prefill_ms=prefill_ms, run_s=run_s, decode_steps=n_steps,
+        decode_step_ms_median=med, decode_step_ms_min=min(step_ms),
+        decode_tok_s=B * n_steps / (sum(step_ms) / 1e3),
+        step_weight_bytes=weights,
+        step_bound_ms=weights / PEAK_BYTES_S * 1e3,
+        prefill_logits_rel_rms=pre_chk["rel_rms"],
+        prefill_logits_err=pre_chk["max_abs"],
+        decode_logits_rel_rms_max=dec_chk["rel_rms"],
+        decode_logits_rel_rms=dec_rms)
+    log(f"[{arch}] prefill of {B} x {res['prefill_positions']} positions "
+        f"{prefill_ms:.2f} ms; decode step median {med:.2f} ms (min "
+        f"{min(step_ms):.2f}) beside its bound {res['step_bound_ms']:.3f} "
+        f"ms ({weights / 1e9:.3f} GB of weights / 3.35 TB/s)")
     del params
     torch.cuda.empty_cache()
     return res
@@ -1036,8 +1375,8 @@ def _kernel_counters() -> dict:
 def phase_serve() -> dict:
     from repro_torch.launch import serve
     s = serve.main(["--pool", "0", "--archs",
-                    "qwen2.5-3b,mamba2-780m,zamba2-2.7b", "--tenants", "3",
-                    "--requests", "9"])
+                    "qwen2.5-3b,mamba2-780m,zamba2-2.7b,granite-moe-1b-a400m",
+                    "--tenants", "4", "--requests", "9"])
     if s["tokens"] <= 0:
         raise AssertionError("serve produced no tokens")
     return {k: s[k] for k in ("requests", "tokens", "wall_s")}
@@ -1635,12 +1974,19 @@ SOURCES = {
 }
 ATTENTION = ("rmsnorm", "flash_attention", "decode_attention")
 # arch -> (kernels its serving path must launch, batched requests,
-#          how its logits are held to the plain path, decode profile)
+#          how its logits are held to the plain path, decode profile,
+#          layers it is cut to or None)
 PATHS = {
-    "qwen2.5-3b": (ATTENTION, 6, "direct", True),
-    "zamba2-2.7b": (ATTENTION + ("ssd_scan",), 6, "fp32", True),
-    "mamba2-780m": (("rmsnorm", "ssd_scan"), 4, None, False),
+    "qwen2.5-3b": (ATTENTION, 6, "direct", True, None),
+    "zamba2-2.7b": (ATTENTION + ("ssd_scan",), 6, "fp32", True, None),
+    "mamba2-780m": (("rmsnorm", "ssd_scan"), 4, None, False, None),
+    "granite-moe-1b-a400m": (ATTENTION, 6, "fp32", True, None),
+    "gemma3-1b": (ATTENTION, 6, "direct", False, None),
+    # 28.5 GB of bf16 weights at 4 of its 40 layers
+    "dbrx-132b": (ATTENTION, 6, "rms", False, 4),
 }
+# the families whose inputs hold embeddings: arch -> layers it is cut to
+FRONTENDS = {"internvl2-76b": 8, "musicgen-large": None}
 
 
 def main() -> int:
@@ -1664,14 +2010,25 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {stem}] {line.strip()}")
 
+    t0 = time.perf_counter()
     REPORT["kernels"] = phase_kernels()
+    log(f"[kernels] phase done in {time.perf_counter() - t0:.1f}s")
     REPORT["paths"] = {}
-    for arch, (kernels, n_batched, logits, profile) in PATHS.items():
+    for arch, (kernels, n_batched, logits, profile, layers) in PATHS.items():
         t0 = time.perf_counter()
         REPORT["paths"][arch] = phase_lm_path(
-            arch, kernels, n_batched, logits=logits, profile=profile)
+            arch, kernels, n_batched, logits=logits, profile=profile,
+            layers=layers)
+        REPORT["paths"][arch]["path_s"] = time.perf_counter() - t0
         log(f"[{arch}] path done in {time.perf_counter() - t0:.1f}s")
+    for arch, layers in FRONTENDS.items():
+        t0 = time.perf_counter()
+        REPORT["paths"][arch] = phase_frontend(arch, layers)
+        REPORT["paths"][arch]["path_s"] = time.perf_counter() - t0
+        log(f"[{arch}] path done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     REPORT["serve"] = phase_serve()
+    log(f"[serve] phase done in {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()        # between phases, off any request path
     snap_root = tempfile.mkdtemp(prefix="hydra-chip-smoke-")
     try:

@@ -254,6 +254,14 @@ class HydraRuntime:
                         arena_sig=arena_sig, arena_factory=factory)
 
     def _register_lm(self, fid, spec: LMSpec, tenant, mem_budget) -> Function:
+        if spec.cfg.family == "audio":
+            # the programs feed tokens, and an audio model takes frame
+            # embeddings: refused here, as the reference refuses it when it
+            # lowers them, but before the reservation, which the
+            # reference's refusal leaves held
+            raise TypeError(f"{spec.cfg.name}: the audio family takes frame "
+                            f"embeddings, and the runtime's programs feed "
+                            f"tokens")
         self._check_device(spec.params, "LMSpec params")
         prog = ModelProgram(spec.cfg)
         B, S = spec.slots, spec.max_seq

@@ -8,7 +8,12 @@ of one architecture shares one program):
   decode_step(params, cache, batch)  -> (logits, cache)   [cache in place]
   cache_specs(batch, seq)            -> {name: TensorSpec} (no allocation)
 
-Training (``loss_fn``/``make_train_step``) is not ported yet.
+A batch holds ``tokens`` (B,S) int32, and ``embeds`` where the family
+takes them: a vlm's prefix (B,frontend_tokens,D), an audio model's frames
+(B,S,D) in place of tokens. An moe model routes within
+``n_route_groups`` groups: one per row in decode, one per 2048 tokens
+otherwise. The training entry points (``loss_fn``, ``make_train_step``)
+have no counterpart here.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models.moe import n_route_groups
 
 
 class TensorSpec(NamedTuple):
@@ -47,19 +53,33 @@ class ModelProgram:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return tf.init_params(gen, self.cfg, dtype=dtype)
 
+    def _n_groups(self, batch) -> int:
+        if self.cfg.moe is None:
+            return 1
+        tokens = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        B, S = tokens.shape[0], tokens.shape[1]
+        if self.cfg.family == "vlm":
+            S = S + self.cfg.frontend_tokens
+        kind = "decode" if S == 1 else "other"
+        return n_route_groups(B * S, kind, B)
+
     # ------------------------------------------------------------------
     def prefill(self, params, batch):
-        return tf.prefill(params, self.cfg, batch["tokens"])
+        return tf.prefill(params, self.cfg, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"),
+                          n_groups=self._n_groups(batch))
 
     def decode_step(self, params, cache, batch):
-        return tf.decode_step(params, self.cfg, cache, batch["tokens"])
+        return tf.decode_step(params, self.cfg, cache,
+                              tokens=batch.get("tokens"),
+                              embeds=batch.get("embeds"),
+                              n_groups=self._n_groups(batch))
 
     # ------------------------------------------------------------------
     # Shape stand-ins (arena sizing) — never allocate.
     # ------------------------------------------------------------------
     def cache_specs(self, batch: int, seq: int) -> dict:
         cfg = self.cfg
-        tf.require_ported(cfg)
         dt = torch_dtype(cfg.dtype)
         specs = {}
         if cfg.family in ("ssm", "hybrid"):

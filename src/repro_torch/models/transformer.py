@@ -1,9 +1,16 @@
-"""Model assembly for the dense, ssm and hybrid families.
+"""Model assembly for all the families.
 
-dense   -> attention + FFN blocks
-ssm     -> Mamba2 (SSD) blocks
-hybrid  -> (zamba2) Mamba2 backbone + ONE shared attention+FFN block
-           applied after every ``hybrid_attn_every`` Mamba layers
+dense / moe / vlm / audio -> attention + FFN blocks (moe: the FFN is the
+                             routed experts of ``models/moe``)
+ssm                       -> Mamba2 (SSD) blocks
+hybrid                    -> (zamba2) Mamba2 backbone + ONE shared
+                             attention+FFN block applied after every
+                             ``hybrid_attn_every`` Mamba layers
+
+The vlm family puts its prefix embeddings (a stubbed vision tower's
+``frontend_tokens`` positions) before the token embeddings when they are
+given; the audio family takes frame embeddings in place of tokens, has no
+embedding table and always an ``lm_head``.
 
 Parameters keep the reference's pytree: nested dicts whose per-layer
 leaves are stacked on a leading L axis. The layers run in a Python loop
@@ -14,9 +21,6 @@ Two serving entry points: ``prefill`` (build the KV cache, last-token
 logits) and ``decode_step`` (one token against the cache). ``decode_step``
 updates the cache in place — the port's counterpart of the reference's
 buffer donation — and returns the same dict.
-
-The moe, vlm and audio families are not ported yet and raise
-NotImplementedError.
 """
 from __future__ import annotations
 
@@ -25,19 +29,10 @@ import torch
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import GLOBAL_WINDOW
 from repro_torch.models.layers import dense_init, embed_lookup, rmsnorm
-
-
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-
-
-def require_ported(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"repro_torch ports the {', '.join(PORTED_FAMILIES)} families; "
-            f"{cfg.name} is {cfg.family}")
 
 
 def hybrid_groups(cfg) -> int:
@@ -56,12 +51,13 @@ def init_params(gen: torch.Generator, cfg, dtype=torch.float32):
     """Random weights drawn from ``gen`` on its device. Each leaf is drawn
     in fp32 and cast to ``dtype`` at once, so a full-width bf16 init never
     holds the whole fp32 model."""
-    require_ported(cfg)
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     dev = gen.device
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
-    params = {"embed": {"tok": dense_init(gen, (V, D), in_axis=-1,
-                                          dtype=dtype)}}
+    params = {}
+    if cfg.family != "audio":
+        params["embed"] = {"tok": dense_init(gen, (V, D), in_axis=-1,
+                                             dtype=dtype)}
     if cfg.family in ("ssm", "hybrid"):
         params["layers"] = {"ln1": zeros(L, D),
                             "ssm": ssm_mod.init_mamba(gen, cfg, stack=L,
@@ -71,8 +67,13 @@ def init_params(gen: torch.Generator, cfg, dtype=torch.float32):
             "ln1": zeros(L, D),
             "attn": attn.init_attention(gen, cfg, stack=L, dtype=dtype),
             "ln2": zeros(L, D),
-            "mlp": mlp_mod.init_mlp(gen, cfg, stack=L, dtype=dtype),
         }
+        if cfg.moe is not None:
+            params["layers"]["moe"] = moe_mod.init_moe(gen, cfg, stack=L,
+                                                       dtype=dtype)
+        else:
+            params["layers"]["mlp"] = mlp_mod.init_mlp(gen, cfg, stack=L,
+                                                       dtype=dtype)
     if cfg.family == "hybrid":
         params["shared"] = {
             "ln1": zeros(D),
@@ -81,7 +82,7 @@ def init_params(gen: torch.Generator, cfg, dtype=torch.float32):
             "mlp": mlp_mod.init_mlp(gen, cfg, dtype=dtype),
         }
     params["final_norm"] = zeros(D)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.family == "audio":
         params["lm_head"] = dense_init(gen, (D, V), dtype=dtype)
     return params
 
@@ -102,8 +103,14 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
-def _embed(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return embed_lookup(params["embed"]["tok"], tokens, torch_dtype(cfg.dtype))
+def _embed(params, cfg, tokens, embeds) -> torch.Tensor:
+    dt = torch_dtype(cfg.dtype)
+    if cfg.family == "audio":
+        return embeds.to(dt)
+    h = embed_lookup(params["embed"]["tok"], tokens, dt)
+    if cfg.family == "vlm" and embeds is not None:
+        h = torch.cat([embeds.to(dt), h], dim=1)
+    return h
 
 
 def _unembed(params, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -114,27 +121,32 @@ def _unembed(params, cfg, h: torch.Tensor) -> torch.Tensor:
     return h @ params["lm_head"].to(dt)
 
 
-def _ffn(p_l, hn: torch.Tensor, cfg) -> torch.Tensor:
+def _ffn(p_l, hn: torch.Tensor, cfg, n_groups: int) -> torch.Tensor:
+    if "moe" in p_l:
+        # the aux loss is for training; serving drops it, as the
+        # reference's prefill and decode do
+        return moe_mod.apply_moe(p_l["moe"], hn, cfg, n_groups)[0]
     return mlp_mod.apply_mlp(p_l["mlp"], hn, cfg)
 
 
-def _attn_ffn_prefill(p_l, h: torch.Tensor, cfg, positions, window):
-    """One attention + FFN block (a dense layer, or the hybrid's shared
-    block) over the prompt -> (h, (k, v))."""
+def _attn_ffn_prefill(p_l, h: torch.Tensor, cfg, positions, window,
+                      n_groups: int = 1):
+    """One attention + FFN block (a layer, or the hybrid's shared block)
+    over the prompt -> (h, (k, v))."""
     hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
     a, kv = attn.attention_prefill(p_l["attn"], hn, cfg, positions, window)
     h = h + a
     hn = rmsnorm(h, p_l["ln2"], cfg.norm_eps)
-    return h + _ffn(p_l, hn, cfg), kv
+    return h + _ffn(p_l, hn, cfg, n_groups), kv
 
 
 def _attn_ffn_decode(p_l, h: torch.Tensor, cfg, k_cache, v_cache, lengths,
-                     window) -> torch.Tensor:
+                     window, n_groups: int = 1) -> torch.Tensor:
     hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
     h = h + attn.attention_decode(p_l["attn"], hn, cfg, k_cache, v_cache,
                                   lengths, window)
     hn = rmsnorm(h, p_l["ln2"], cfg.norm_eps)
-    return h + _ffn(p_l, hn, cfg)
+    return h + _ffn(p_l, hn, cfg, n_groups)
 
 
 def _shared_after(cfg, i: int) -> bool:
@@ -145,21 +157,22 @@ def _shared_after(cfg, i: int) -> bool:
 # ---------------------------------------------------------------------------
 # prefill: build the cache, return last-token logits
 # ---------------------------------------------------------------------------
-def prefill(params, cfg, tokens: torch.Tensor):
-    """tokens (B,S) -> (logits (B,V), cache). The cache holds, by family:
-    dense  {k, v: (L,B,S,Hkv,hd), length};
-    ssm    {conv: (L,B,k-1,conv_dim), state: (L,B,H,P,N) fp32, length};
-    hybrid the ssm leaves plus {k, v: (G,B,S,Hkv,hd)}, G = L // k."""
-    require_ported(cfg)
-    h = _embed(params, cfg, tokens)
+def prefill(params, cfg, tokens=None, embeds=None, *, n_groups: int = 1):
+    """tokens (B,S) and/or embeds (B,F,D) -> (logits (B,V), cache). S
+    counts the whole sequence, a vlm prefix included. The cache holds,
+    by family:
+    dense, moe, vlm, audio  {k, v: (L,B,S,Hkv,hd), length};
+    ssm     {conv: (L,B,k-1,conv_dim), state: (L,B,H,P,N) fp32, length};
+    hybrid  the ssm leaves plus {k, v: (G,B,S,Hkv,hd)}, G = L // k."""
+    h = _embed(params, cfg, tokens, embeds)
     B, S, _ = h.shape
     dt = h.dtype
     positions = torch.arange(S, device=h.device)[None, :]
     cache, ks, vs = {}, [], []
-    if cfg.family == "dense":
+    if cfg.family not in ("ssm", "hybrid"):
         for i, window in enumerate(layer_windows(cfg)):
             h, (k, v) = _attn_ffn_prefill(_layer(params["layers"], i), h,
-                                          cfg, positions, window)
+                                          cfg, positions, window, n_groups)
             ks.append(k.to(dt))
             vs.append(v.to(dt))
     else:
@@ -181,24 +194,26 @@ def prefill(params, cfg, tokens: torch.Tensor):
     if ks:
         cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
     cache["length"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
-    return _unembed(params, cfg, h[:, -1:, :])[:, 0], cache
+    # the last position of B > 1 rows is a strided view; the norm's
+    # kernel takes contiguous rows
+    return _unembed(params, cfg, h[:, -1:].contiguous())[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
 # decode: one token against the cache, in place
 # ---------------------------------------------------------------------------
-def decode_step(params, cfg, cache, tokens: torch.Tensor):
-    """tokens (B,1) -> (logits (B,V), cache). Writes every layer's new K/V
-    row, conv window and SSM state into the cache's leaves and bumps
-    ``cache["length"]``, all in place."""
-    require_ported(cfg)
-    h = _embed(params, cfg, tokens)
+def decode_step(params, cfg, cache, tokens=None, embeds=None, *,
+                n_groups: int = 1):
+    """tokens (B,1) / embeds (B,1,D) -> (logits (B,V), cache). Writes
+    every layer's new K/V row, conv window and SSM state into the cache's
+    leaves and bumps ``cache["length"]``, all in place."""
+    h = _embed(params, cfg, tokens, embeds)
     lengths = cache["length"]
-    if cfg.family == "dense":
+    if cfg.family not in ("ssm", "hybrid"):
         for i, window in enumerate(layer_windows(cfg)):
             h = _attn_ffn_decode(_layer(params["layers"], i), h, cfg,
                                  cache["k"][i], cache["v"][i], lengths,
-                                 window)
+                                 window, n_groups)
     else:
         g = 0
         for i in range(cfg.n_layers):

@@ -9,16 +9,20 @@ on a GPU machine without JAX:
 Tolerances are those of tests/test_kernels.py: fp32 2e-5, bf16 5e-2, and
 1e-3 for the SSD scan's fp32 final state.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.attention import GLOBAL_WINDOW
+from repro_torch.models.programs import ModelProgram
 
 DTYPES = ("float32", "bfloat16")
 FLASH_CASES = [                               # tests/test_kernels.py sweep
@@ -33,6 +37,10 @@ FLASH_CASES = [                               # tests/test_kernels.py sweep
     (2, 200, 4, 1, 256, True, None),          # gemma3-1b global layer
     (2, 333, 8, 2, 128, True, None),          # S not a multiple of 64
     (1, 150, 4, 2, 80, False, 40),            # ragged, window, non-causal
+    (1, 500, 16, 8, 64, True, None),          # granite-moe-1b-a400m
+    (4, 128, 32, 32, 64, True, None),         # musicgen-large
+    (1, 300, 48, 8, 128, True, None),         # dbrx-132b: group 6
+    (2, 300, 64, 8, 128, True, None),         # internvl2-76b: group 8
 ]
 DECODE_SPLIT_CASES = [                        # B, S, Hq, Hkv, hd, window, lengths
     (2, 1024, 4, 1, 256, 512, [700, 1024]),   # gemma3-1b local layer
@@ -41,11 +49,16 @@ DECODE_SPLIT_CASES = [                        # B, S, Hq, Hkv, hd, window, lengt
     (2, 1024, 16, 2, 128, 20, [1000, 33]),    # most splits empty
     (2, 100, 8, 1, 32, 7, [100, 64]),         # ragged S, one split's edge
     (1, 64, 16, 2, 8, None, [3]),
+    (4, 1024, 16, 8, 64, None, [0, 1, 700, 1500]),   # granite-moe-1b-a400m
+    (4, 1024, 48, 8, 128, None, [532, 45, 1000, 77]),  # dbrx-132b: G=8 of 6
+    (4, 1024, 64, 8, 128, None, [532, 1, 1024, 700]),  # internvl2-76b
 ]
 RMS_SHAPES = [(8, 64), (2, 17, 128), (100, 256), (4, 1, 2048),
               (4, 1, 2560), (4, 1, 1536),     # zamba2, mamba2 decode rows
               (3, 100),                       # D not a multiple of 8
-              (13, 2048)]                     # rows not a multiple of 8
+              (13, 2048),                     # rows not a multiple of 8
+              (4, 1, 1024), (4, 1, 1152),     # granite-moe, gemma3
+              (4, 1, 6144), (4, 500, 8192)]   # dbrx, internvl: scalar variant
 SSD_CASES = [                                 # B, S, H, P, N, chunk, init
     (1, 500, 80, 64, 64, 256, False),         # zamba2-2.7b prefill
     (1, 500, 48, 64, 128, 256, False),        # mamba2-780m prefill
@@ -270,3 +283,46 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                  dt, A, bc, bc)
     with pytest.raises(ValueError, match="shared memory"):
         ssd_scan(x, dt, A, bc, bc, chunk=1 << 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "granite-moe-1b-a400m",
+                                  "internvl2-76b", "musicgen-large"])
+def test_prefill_of_several_rows_matches_plain(cuda, arch):
+    """A prefill of 3 rows (an fp32 reduced config: the vlm with its
+    prefix, the audio model on frames) and a decode step, kernel path
+    against plain path. The last position of several rows is a strided
+    view, which the final norm's kernel must be handed contiguous."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    prog = ModelProgram(cfg)
+    params = prog.init(0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    emb = lambda *shape: torch.randn(shape, generator=gen, device=cuda)
+    toks = lambda *shape: torch.randint(0, cfg.vocab_size, shape,
+                                        generator=gen, device=cuda,
+                                        dtype=torch.int32)
+    B, S = 3, 20
+    if cfg.family == "audio":
+        pre, dec = {"embeds": emb(B, S, cfg.d_model)}, \
+            {"embeds": emb(B, 1, cfg.d_model)}
+    else:
+        pre, dec = {"tokens": toks(B, S - cfg.frontend_tokens)}, \
+            {"tokens": toks(B, 1)}
+        if cfg.frontend_tokens:
+            pre["embeds"] = emb(B, cfg.frontend_tokens, cfg.d_model)
+
+    def run():
+        logits, cache = prog.prefill(params, pre)
+        cache = {k: torch.cat([v, torch.zeros_like(v[:, :, :4])], 2)
+                 if k in ("k", "v") else v for k, v in cache.items()}
+        return logits, prog.decode_step(params, cache, dec)[0]
+
+    with torch.no_grad():
+        got = run()
+        ops.set_kernel_mode("ref")
+        try:
+            want = run()
+        finally:
+            ops.set_kernel_mode(None)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(f32(g), f32(w), **tol("float32"))

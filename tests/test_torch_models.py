@@ -19,7 +19,7 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.models import transformer as jtf
 from repro.models.programs import ModelProgram as JProgram
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import GLOBAL_WINDOW
 from repro_torch.models.convert import params_from_numpy
@@ -202,14 +202,83 @@ def test_layer_windows_match_reference():
     assert GLOBAL_WINDOW == int(jnp.iinfo(jnp.int32).max // 2)
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "musicgen-large",
-                                  "granite-moe-1b-a400m"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        ModelProgram(cfg).init(0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ModelProgram(cfg).cache_specs(1, 8)
+def family_batch(cfg, B, S, seed):
+    """numpy inputs of a prefill of S positions and of one decode step:
+    tokens; a vlm's prefix embeddings before S - frontend_tokens tokens;
+    an audio model's frame embeddings in place of tokens."""
+    rng = np.random.default_rng(seed)
+    emb = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    if cfg.family == "audio":
+        return {"embeds": emb(B, S, cfg.d_model)}, \
+            {"embeds": emb(B, 1, cfg.d_model)}
+    toks = tokens(cfg.vocab_size, B, S + 1, seed)
+    ft = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    pre = {"tokens": toks[:, :S - ft]}
+    if ft:
+        pre["embeds"] = emb(B, ft, cfg.d_model)
+    return pre, {"tokens": toks[:, S:]}
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_arch_prefill_and_decode_match_reference(arch):
+    """Every family's reduced config, fp32: prefill logits and cache, then
+    one decode step's logits and cache, against the reference on the same
+    weights and inputs (the vlm with its prefix, the audio model on
+    frames)."""
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), dtype="float32")
+    tcfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    jparams = ref_params(jcfg, seed=6)
+    tparams = params_from_numpy(to_numpy(jparams), "cpu")
+    jprog, tprog = JProgram(jcfg, remat=False), ModelProgram(tcfg)
+    B, S = 2, 12
+    pre, dec = family_batch(tcfg, B, S, seed=6)
+    as_j = lambda b: {k: jnp.asarray(v) for k, v in b.items()}
+    as_t = lambda b: {k: torch.from_numpy(v) for k, v in b.items()}
+    jl, jc = jprog.prefill(jparams, as_j(pre))
+    tl, tc = tprog.prefill(tparams, as_t(pre))
+    np.testing.assert_allclose(f32(tl), f32(jl), **F32_TOL)
+    assert set(tc) == set(jc)
+    for k in tc:
+        np.testing.assert_allclose(f32(tc[k]), f32(jc[k]), **F32_TOL)
+    assert tc["length"].tolist() == [S] * B
+
+    # decode one position against caches grown by 4 rows (K/V only: the
+    # SSM leaves have no sequence axis)
+    grow = lambda c, z, cat: {
+        k: cat([v, z(v[:, :, :4])], 2) if k in ("k", "v") else v
+        for k, v in c.items()}
+    jc = grow(jc, jnp.zeros_like, lambda xs, a: jnp.concatenate(xs, a))
+    tc = grow(tc, torch.zeros_like, torch.cat)
+    jd, jc = jprog.decode_step(jparams, jc, as_j(dec))
+    td, tc = tprog.decode_step(tparams, tc, as_t(dec))
+    np.testing.assert_allclose(f32(td), f32(jd), **F32_TOL)
+    for k in tc:
+        np.testing.assert_allclose(f32(tc[k]), f32(jc[k]), **F32_TOL)
+    assert tc["length"].tolist() == [S + 1] * B
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-76b",
+                                  "musicgen-large"])
+def test_new_family_cache_specs_match_reference(arch):
+    jcfg, tcfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    js = JProgram(jcfg).cache_specs(3, 40)
+    ts = ModelProgram(tcfg).cache_specs(3, 40)
+    assert {k: tuple(v.shape) for k, v in ts.items()} == \
+        {k: v.shape for k, v in js.items()}
+    assert ModelProgram(tcfg).cache_bytes(3, 40) == \
+        JProgram(jcfg).cache_bytes(3, 40)
+
+
+def test_route_groups_match_reference_for_every_batch_kind():
+    """ModelProgram._n_groups: 1 for a model without experts, B for an moe
+    decode, one per 2048 tokens otherwise; the vlm counts its prefix."""
+    for arch in ("granite-moe-1b-a400m", "qwen2.5-3b", "internvl2-76b"):
+        jprog = JProgram(jget_config(arch).reduced())
+        tprog = ModelProgram(get_config(arch).reduced())
+        for shape in [(4, 1), (1, 128), (2, 2048), (3, 2048)]:
+            z = np.zeros(shape, np.int32)
+            assert tprog._n_groups({"tokens": z}) == \
+                jprog._n_groups({"tokens": z}), (arch, shape)
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "nemotron-4-15b"])

@@ -288,6 +288,29 @@ def test_continuous_batcher_matches_single_path():
         rt.shutdown()
 
 
+def test_continuous_batcher_matches_single_path_moe():
+    """tests/test_runtime.py's batcher test on its model, reduced
+    granite-moe-1b-a400m in bf16: a decode step routes each slot alone, so
+    the other slots' tokens cannot change a request's experts."""
+    rt = make_rt(memory_budget_bytes=2 << 30)
+    try:
+        cfg = get_config("granite-moe-1b-a400m").reduced()
+        params = ModelProgram(cfg).init(0, device="cpu",
+                                        dtype=torch.bfloat16)
+        rt.register_function("lm", LMSpec(cfg=cfg, params=params,
+                                          max_seq=64, slots=3))
+        single = rt.generate("lm", list(range(8)), max_new_tokens=5)
+        b = ContinuousBatcher(rt, "lm")
+        futs = [b.submit(list(range(8)), 5) for _ in range(5)]
+        b.run_until_done()
+        outs = [f.result() for f in futs]
+        assert all(o == single for o in outs)
+        assert b.steps < 5 * 5           # 5 requests over 3 slots share steps
+        b.close()
+    finally:
+        rt.shutdown()
+
+
 def test_batcher_free_slots_decode_past_max_seq():
     """Free slots keep decoding (as in the reference), so their length runs
     past max_seq; the clamped cache write keeps that harmless."""
@@ -326,14 +349,27 @@ def test_token_bucket_burst_then_empty():
     assert [tb.try_take() for _ in range(8)] == [True] * 5 + [False] * 3
 
 
-# the reference's TokenBucket tests (tests/test_scheduler.py), run against
-# the port's copy: the gateway's admission control rests on the bucket.
-# The batcher tests there need the reference's lm_runtime fixture.
+@pytest.fixture(scope="module")
+def lm_runtime():
+    """The port's counterpart of tests/test_scheduler.py's fixture: reduced
+    qwen2.5-3b in bf16, 2 slots of 64 positions, on the CPU."""
+    rt = HydraRuntime(device="cpu", memory_budget_bytes=2 << 30)
+    rt.register_function("t0/lm", lm_spec(slots=2, max_seq=64), tenant="t0")
+    yield rt
+    rt.shutdown()
+
+
+# the reference's TokenBucket and ContinuousBatcher tests
+# (tests/test_scheduler.py), run against the port's copies: the gateway's
+# admission control rests on the bucket; the batcher tests take the
+# lm_runtime fixture above
 bind(globals(), port_tests("test_scheduler", include=(
     "test_burst_then_empty", "test_refill_caps_at_burst",
     "test_fractional_take_and_refill_rate",
     "test_contention_grants_exactly_burst_with_no_refill",
-    "test_contention_with_refill_never_exceeds_budget")))
+    "test_contention_with_refill_never_exceeds_budget",
+    "test_admission_is_fifo_and_bounded_by_slots",
+    "test_slot_reuse_keeps_serving_after_drain")))
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +398,65 @@ def test_generate_tokens_equal_reference_runtime():
     finally:
         rt.shutdown()
     assert got == want
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-76b"])
+def test_generate_tokens_equal_reference_runtime_new_families(arch):
+    """Greedy tokens of an moe model, and of a vlm served on tokens alone
+    (the runtime passes no prefix, as the reference's does not), equal
+    the reference runtime's on converted weights, fp32 config."""
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), dtype="float32")
+    tcfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    jparams = JProgram(jcfg).init(jax.random.PRNGKey(8))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    prompt = np.random.default_rng(8).integers(0, 256, 10).tolist()
+    jrt = JRuntime(memory_budget_bytes=1 << 30, janitor=False)
+    try:
+        jrt.register_function("lm", JLMSpec(cfg=jcfg, params=jparams,
+                                            max_seq=32, slots=2))
+        want = jrt.generate("lm", prompt, max_new_tokens=8)
+    finally:
+        jrt.shutdown()
+    rt = make_rt()
+    try:
+        rt.register_function("lm", LMSpec(cfg=tcfg, params=tparams,
+                                          max_seq=32, slots=2))
+        got = rt.generate("lm", prompt, max_new_tokens=8)
+    finally:
+        rt.shutdown()
+    assert got == want
+
+
+def test_audio_registration_refused_before_the_reservation():
+    """The runtime's programs feed tokens; an audio model takes frames.
+    The reference refuses a musicgen-large LMSpec at register_function
+    (an AttributeError while it lowers the decode program) after its
+    budget reservation, which stays held with no function registered.
+    The port refuses it there too, with a TypeError, before reserving."""
+    jcfg = jget_config("musicgen-large").reduced()
+    jparams = JProgram(jcfg).init(jax.random.PRNGKey(0))
+    jspec = JLMSpec(cfg=jcfg, params=jparams, max_seq=32, slots=2)
+    jrt = JRuntime(memory_budget_bytes=1 << 30, janitor=False)
+    try:
+        with pytest.raises(AttributeError):
+            jrt.register_function("music", jspec)
+        assert len(jrt.registry) == 0
+        assert jrt.budget.used == 378_120          # the leaked reservation
+    finally:
+        jrt.shutdown()
+
+    tcfg = get_config("musicgen-large").reduced()
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    rt = make_rt()
+    try:
+        with pytest.raises(TypeError, match="audio"):
+            rt.register_function("music", LMSpec(cfg=tcfg, params=tparams,
+                                                 max_seq=32, slots=2))
+        assert len(rt.registry) == 0
+        assert rt.budget.used == 0
+        assert rt.register_function("lm", lm_spec())   # still serves
+    finally:
+        rt.shutdown()
 
 
 # ---------------------------------------------------------------------------

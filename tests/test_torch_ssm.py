@@ -422,12 +422,6 @@ def test_prefill_decode_matches_reference_forward(arch):
     assert cache["length"].tolist() == [S + 2] * B
 
 
-def test_unported_family_check_names_the_ported_ones():
-    cfg = get_config("granite-moe-1b-a400m").reduced()
-    with pytest.raises(NotImplementedError, match="dense, ssm, hybrid"):
-        ModelProgram(cfg).cache_specs(1, 8)
-
-
 # ---------------------------------------------------------------------------
 # the runtime and the batcher
 # ---------------------------------------------------------------------------
