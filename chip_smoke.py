@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc/`` (one nvcc per source, all started together) and then runs eight
 phases (the serving paths of phases 2-4 now include five more
-architectures, 4a-4e); any failure exits non-zero.
+architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
 
 1. Each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at the full-width shapes of the serving paths plus edge cases,
@@ -36,7 +36,16 @@ architectures, 4a-4e); any failure exits non-zero.
    and mamba2 decode rows and a 500-token prompt, with its events time
    per call beside ``F.rms_norm``'s over 3 repetitions. Each row records
    its CTA count (decode: the split plan; ssd_scan: each pass) and the
-   kernels' registers and spills from the ptxas report.
+   kernels' registers and spills from the ptxas report. The backward
+   kernels (training) against autograd of their plain versions, each call
+   twice and bit-equal: ``rmsnorm_bwd`` at 8 x 128 rows of d 2048, 1024,
+   1152, 6144, 8192 and 2047 (bf16 x, fp32 master w; dw relative to its
+   largest |dw|) and fp32 x; ``flash_attention_bwd`` (dq, dk, dv) at
+   qwen's training shape (8,128,16,128) / KV 2, a 500-token prompt,
+   granite-moe's hd 64 group 2, gemma3's hd 256 window 512 (S 1024), a
+   ragged S and fp32; each timed backward only (autograd over a kept
+   graph for the plain version and the library call: ``F.rms_norm``'s
+   backward, SDPA's with ``enable_gqa``) beside its bound.
 2. qwen2.5-3b (dense) at full width: the port's seeded init (36 layers,
    bf16) registered in a ``HydraRuntime`` (slots 4, max_seq 1024), one
    ``generate`` per prompt (128 and 500 tokens), then six requests
@@ -71,6 +80,21 @@ architectures, 4a-4e); any failure exits non-zero.
 5. The reduced closed-loop serve, ``repro_torch.launch.serve``, over one
    tenant each of qwen2.5-3b, mamba2-780m, zamba2-2.7b and
    granite-moe-1b-a400m.
+5a. Training, from the launcher's pieces (``repro_torch.launch.train``:
+   its flags, ``build``, ``make_batch``; fp32 masters, bf16 compute,
+   batch 8, seq 128, AdamW with warmup_cosine, lr 1e-3 after 3 warmup
+   steps): full-width qwen2.5-3b (36 layers) takes 8 steps of n_micro 1
+   (the last under the profiler) and one of n_micro 2. Gates: every loss
+   finite, the mean of the last 3 below the first, every step moves the
+   parameters, 73 rmsnorm and 36 flash launches per step forward and
+   backward, ``max_memory_allocated`` under the card's memory. Then the
+   same model cut to 4 layers (the one cut): every parameter's gradient
+   on the kernel path within 5e-2 relative RMS of the plain path's.
+   gemma3-1b and granite-moe-1b-a400m at full width take 2 steps each
+   (finite losses); the launcher's restart drill (reduced qwen2.5-3b, 18
+   steps, a failure at 12, checkpoints every 5) must resume; and reduced
+   mamba2-780m must be refused on the card (the ``ssd_scan`` backward's
+   ``NotImplementedError``) with its parameters unchanged.
 6. The platform at full width: two tenants' qwen2.5-3b functions in a
    ``HydraPlatform`` (pool 2, 16 GiB per runtime) pack into one runtime
    with the program count of one; one is generated from (a 128-token
@@ -121,7 +145,9 @@ architectures, 4a-4e); any failure exits non-zero.
 
 Each serving path sets the launch counters to 0 just before its runtime
 run and reads them just after; the platform, cluster and gateway phases
-count theirs under the paths ``platform``, ``cluster`` and ``gateway``.
+count theirs under the paths ``platform``, ``cluster`` and ``gateway``,
+and the training runs under ``train qwen``, ``train gemma3-1b``, ``train
+granite-moe-1b-a400m`` and ``train drill``.
 
 Output: the card's name and power limit first; a ``{"kernels": [...]}``
 line before the last; and as the last line
@@ -403,6 +429,7 @@ def phase_kernels() -> dict:
             f"decode {label} hd{d} group {hq // hkv} step")
         torch.cuda.empty_cache()
     out["ssd_scan"] = phase_ssd(gen)
+    out.update(phase_backward(gen))
     for name, r in out.items():
         for tag, t in [("", r)] + [(f" {k}", v) for k, v in r.items()
                                    if isinstance(v, dict) and "ms" in v]:
@@ -756,6 +783,202 @@ def phase_ssd(gen) -> dict:
     out = timed(ZAMBA["H"], ZAMBA["P"], ZAMBA["N"])
     out["mamba2"] = timed(MAMBA["H"], MAMBA["P"], MAMBA["N"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 1, the backward kernels: each against autograd of its plain version
+# ---------------------------------------------------------------------------
+TRAIN_B, TRAIN_S = 8, 128          # the launcher's batch and sequence
+
+
+def twice_equal(name: str, fn) -> tuple:
+    """``fn()`` run twice; the results must be bit-equal (no atomics)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two calls are not bit-equal")
+    return a
+
+
+def compare_dw(name: str, got, want, dtype) -> float:
+    """A weight gradient summed over every row, compared relative to its
+    largest |dw| (elementwise, a column whose terms cancel would be held
+    to the fp32 tolerance of its own small sum); max abs error returned."""
+    scale = float(want.float().abs().max()) or 1.0
+    compare(name + " (/ max |dw|)", got.float() / scale,
+            want.float() / scale, dtype)
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_backward(gen) -> dict:
+    """Phase 1's backward rows: rmsnorm_bwd and flash_attention_bwd against
+    autograd of their plain versions, each call twice and bit-equal, then
+    timed at the training path's shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    # ---- rmsnorm: the training rows (8 x 128) at every width the model
+    # families use, an odd width, and fp32 x; w is the fp32 master
+    for D, xd in [(2048, bf16), (1024, bf16), (1152, bf16), (6144, bf16),
+                  (8192, bf16), (2047, bf16), (2048, f32)]:
+        shape = (TRAIN_B, TRAIN_S, D)
+        x, dy = randn(shape, xd, gen), randn(shape, xd, gen)
+        w = randn((D,), f32, gen) * 0.1
+        dx, dw = twice_equal(f"rmsnorm_bwd {shape} {xd}",
+                             lambda: rmsnorm_bwd(dy, x, w))
+        rdx, rdw = ref.rmsnorm_bwd_ref(dy, x, w)
+        compare(f"rmsnorm_bwd dx {shape} x={xd}", dx, rdx, xd)
+        compare_dw(f"rmsnorm_bwd dw {shape} x={xd}", dw, rdw, f32)
+    out["rmsnorm_bwd"] = time_rmsnorm_bwd(gen)
+
+    # ---- flash attention: qwen's training shape, a 500-token prompt,
+    # granite-moe's hd 64 group 2, gemma3's hd 256 window 512, ragged S,
+    # fp32
+    H, K, hd = QWEN["Hq"], QWEN["Hkv"], QWEN["hd"]
+    for B, S, hq, hkv, d, win, dt in [
+            (TRAIN_B, TRAIN_S, H, K, hd, None, bf16),
+            (1, 500, H, K, hd, None, bf16),
+            (TRAIN_B, TRAIN_S, *GRANITE_MOE, None, bf16),
+            (1, 1024, *GEMMA3, GEMMA3_WINDOW, bf16),
+            (2, 333, 8, 2, 128, None, bf16),
+            (2, TRAIN_S, H, K, hd, None, f32)]:
+        q, dout = randn((B, S, hq, d), dt, gen), randn((B, S, hq, d), dt, gen)
+        k, v = randn((B, S, hkv, d), dt, gen), randn((B, S, hkv, d), dt, gen)
+        lse = torch.empty((B, hq, S), dtype=f32, device="cuda")
+        o = _forward(q, k, v, True, win, None, lse)
+        name = f"flash_bwd {B},{S},{hq},{hkv},{d} win={win} {dt}"
+        got = twice_equal(name, lambda: flash_attention_bwd(
+            q, k, v, o, lse, dout, window=win))
+        want = ref.flash_attention_bwd_ref(q, k, v, dout, window=win)
+        for nm, g, w in zip(("dq", "dk", "dv"), got, want):
+            compare(f"{name} {nm}", g, w, dt)
+    fa = time_flash_bwd(*(randn((TRAIN_B, TRAIN_S, h, hd), bf16, gen)
+                          for h in (H, K, K, H)), "qwen training")
+    fa["prompt500"] = time_flash_bwd(
+        *(randn((1, 500, h, hd), bf16, gen) for h in (H, K, K, H)),
+        "500-token prompt")
+    hq, hkv, d = GRANITE_MOE
+    fa["granite-moe"] = time_flash_bwd(
+        *(randn((TRAIN_B, TRAIN_S, h, d), bf16, gen)
+          for h in (hq, hkv, hkv, hq)), "granite-moe hd64 group 2")
+    hq, hkv, d = GEMMA3
+    fa["gemma3"] = time_flash_bwd(
+        *(randn((1, 1024, h, d), bf16, gen) for h in (hq, hkv, hkv, hq)),
+        "gemma3 hd256 window 512", window=GEMMA3_WINDOW)
+    out["flash_attention_bwd"] = fa
+    return out
+
+
+def time_rmsnorm_bwd(gen) -> dict:
+    """rmsnorm_bwd at the training path's rows (8 x 128 x 2048 bf16, fp32
+    w): the kernel, autograd of the plain version and ``F.rms_norm``'s
+    backward (w folded to 1 + w in bf16), backward only."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    D = QWEN["D"]
+    shape = (TRAIN_B, TRAIN_S, D)
+    x, dy = randn(shape, bf16, gen), randn(shape, bf16, gen)
+    w = randn((D,), f32, gen) * 0.1
+    dx, dw = rmsnorm_bwd(dy, x, w)
+    rdx, rdw = ref.rmsnorm_bwd_ref(dy, x, w)
+    err = max(compare("rmsnorm_bwd main-path dx", dx, rdx, bf16),
+              compare_dw("rmsnorm_bwd main-path dw", dw, rdw, f32))
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yp = ref.rmsnorm_ref(xp, wp)
+    xl = x.clone().requires_grad_()
+    wl = (1.0 + w).to(bf16).requires_grad_()
+    yl = F.rms_norm(xl, (D,), wl, 1e-5)
+    # backward only: autograd over a kept graph for the plain version and
+    # the library call
+    t = timings(
+        lambda: rmsnorm_bwd(dy, x, w),
+        lambda: torch.autograd.grad(yp, (xp, wp), dy, retain_graph=True),
+        lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True),
+        iters=20)
+    n = x.numel()
+    # dy and x read, dx written (bf16); w read and dw written (fp32);
+    # about 12 fp32 flops per element on the CUDA cores
+    b_ms, b_by = bound(3 * n * 2 + 2 * D * 4, 12.0 * n, f32)
+    rows = n // D
+    return dict(shape=list(shape), w_dtype="float32", max_abs_err=err,
+                ctas=dict(dx=-(-rows // 8), dw_partial=[-(-D // 256),
+                                                        "chunks by shape"],
+                          dw_final=-(-D // 256)),
+                ptxas=ptxas_usage("rmsnorm_bwd", "rmsnorm_bwd_kernel",
+                                  "13__nv_bfloat16fLb1E"),
+                device_ms_by_pass=device_ms_by_kernel(
+                    lambda: rmsnorm_bwd(dy, x, w),
+                    ("rmsnorm_bwd_kernel", "rmsnorm_dw_partial",
+                     "rmsnorm_dw_final")),
+                **t, bound_ms=b_ms, bound_by=b_by)
+
+
+def time_flash_bwd(q, k, v, dout, name: str, window=None) -> dict:
+    """flash_attention_bwd at a training shape (bf16, causal, ``window`` or
+    none) against autograd of the plain version, then the kernel's, the
+    plain version's and SDPA's backward times (backward only, over a kept
+    graph) beside the bound: max(bytes once / 3.35 TB/s, 2.5 x the
+    forward's visible-pair flops / 989 TFLOP/s)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+
+    B, S, H, hd = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    o = _forward(q, k, v, True, window, None, lse)
+    kern = lambda: flash_attention_bwd(q, k, v, o, lse, dout, window=window)
+    got, want = kern(), ref.flash_attention_bwd_ref(q, k, v, dout,
+                                                    window=window)
+    err = max(compare(f"flash_bwd {name} {nm}", g, w, torch.bfloat16)
+              for nm, g, w in zip(("dq", "dk", "dv"), got, want))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    op = ref.flash_attention_ref(*ins, window=window)
+    lib_in = [t.transpose(1, 2).contiguous().requires_grad_()
+              for t in (q, k, v)]
+    if window is None:
+        ol = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                            enable_gqa=True)
+    else:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        ol = F.scaled_dot_product_attention(*lib_in, attn_mask=mask,
+                                            enable_gqa=True)
+    dlib = dout.transpose(1, 2).contiguous()
+    t = timings(
+        kern, lambda: torch.autograd.grad(op, ins, dout, retain_graph=True),
+        lambda: torch.autograd.grad(ol, lib_in, dlib, retain_graph=True),
+        iters=20)
+    # q, o, dO read and dq written; k, v read and dk, dv written (bf16);
+    # lse read (fp32)
+    nbytes = 4 * q.numel() * 2 + 4 * k.numel() * 2 + B * H * S * 4
+    flops = 2.5 * 4.0 * hd * H * B * attention_pairs(S, True, window)
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    hs = 2 if hd > 128 else 1
+    return dict(
+        shape=list(q.shape), kv_heads=k.shape[2], window=window,
+        max_abs_err=err,
+        ctas=dict(dq=-(-S // 64) * H * B, dkv=-(-S // 64) * H * B,
+                  reduce=-(-B * S * k.shape[2] * hd // 256)),
+        threads_per_cta=128 * hs,
+        ptxas=dict(dq=ptxas_usage("flash_attention_bwd",
+                                  "flash_bwd_dq_kernel", f"Li{hd}E"),
+                   dkv=ptxas_usage("flash_attention_bwd",
+                                   "flash_bwd_dkv_kernel", f"Li{hd}E")),
+        device_ms_by_pass=device_ms_by_kernel(
+            kern, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                   "flash_bwd_reduce_kernel")),
+        **t, bound_ms=b_ms, bound_by=b_by)
 
 
 # ---------------------------------------------------------------------------
@@ -1314,6 +1537,8 @@ KERNEL_CLASSES = {   # profiler kernel-name keys of each hand-written kernel
     "decode_attention": ("decode_scores", "decode_pv", "decode_combine"),
     "ssd_scan": ("ssd_scan_kernel", "ssd_chunk_kernel", "ssd_state_kernel",
                  "ssd_out_kernel"),
+    "rmsnorm_bwd": ("rmsnorm_bwd_kernel", "rmsnorm_dw_"),
+    "flash_attention_bwd": ("flash_bwd_",),
 }
 
 
@@ -1362,11 +1587,14 @@ def profile_device(fn, steps: int, what: str) -> dict:
 
 def _kernel_counters() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-            "decode_attention": decode_attention, "ssd_scan": ssd_scan}
+            "decode_attention": decode_attention, "ssd_scan": ssd_scan,
+            "rmsnorm_bwd": rmsnorm_bwd,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -1380,6 +1608,311 @@ def phase_serve() -> dict:
     if s["tokens"] <= 0:
         raise AssertionError("serve produced no tokens")
     return {k: s[k] for k in ("requests", "tokens", "wall_s")}
+
+
+# ---------------------------------------------------------------------------
+# phase 5a: training at full width
+# ---------------------------------------------------------------------------
+# the full-width run: the launcher's batch and sequence and AdamW with
+# warmup_cosine; a short warmup, since 9 steps at the default lr (3e-4,
+# 10 warmup steps) stay inside the batch-to-batch noise of the loss
+TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--full", "--steps", "9", "--lr",
+              "1e-3", "--warmup", "3"]
+TRAIN_STEPS = 8                    # n_micro 1, then one step of n_micro 2
+GRAD_LAYERS = 4                    # the kernel-vs-plain gradient check
+
+
+def train_setup(argv: list, layers: int | None = None):
+    """(args, cfg, program, optimizer, params, opt state) from the
+    launcher's own pieces: its flags, ``build`` and the port's seeded
+    init (fp32 masters); ``layers`` cuts the depth."""
+    import dataclasses
+
+    from repro_torch.launch import train
+    from repro_torch.models.programs import ModelProgram
+
+    args = train.parse_args(argv)
+    cfg, prog, opt = train.build(args)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        prog = ModelProgram(cfg, remat=args.remat)
+    params = prog.init(0, device="cuda")
+    return args, cfg, prog, opt, params, opt.init(params)
+
+
+def train_batches(cfg, args, steps: int) -> list:
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                      batch_size=args.batch)
+    return [train.make_batch(cfg, args, s, make_batch(data, s), "cuda")
+            for s in range(steps)]
+
+
+def leaf_probe(params) -> list:
+    """The first 4096 elements of every leaf, copied: enough to see that a
+    step moved each leaf without holding a second model."""
+    from repro_torch.core.arena import tree_leaves
+    return [p.reshape(-1)[:4096].clone() for p in tree_leaves(params)]
+
+
+def timed_step(step, params, opt_state, batch) -> tuple:
+    """(metrics, host ms of one train step ending in the loss's read)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, mets = step(params, opt_state, batch)
+    float(mets["loss"])
+    return mets, (time.perf_counter() - t0) * 1e3
+
+
+def train_full_width() -> dict:
+    """qwen2.5-3b at full width (36 layers): 8 steps of n_micro 1 (the
+    last one under the profiler), then one of n_micro 2 (module
+    docstring)."""
+    from repro_torch.core.arena import tree_bytes
+    from repro_torch.core.arena import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    args, cfg, prog, opt, params, opt_state = train_setup(TRAIN_ARGV)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batches = train_batches(cfg, args, TRAIN_STEPS + 1)
+    L = cfg.n_layers
+    log(f"[train] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params, fp32 masters "
+        f"{tree_bytes(params) / 1e9:.2f} GB, batch {args.batch} x seq "
+        f"{args.seq}, lr {args.lr} warmup {args.warmup}")
+    counters = zero_launches()
+    step = prog.make_train_step(opt, n_micro=1)
+    losses, step_ms, moved, profile = [], [], [], None
+    for s in range(TRAIN_STEPS):
+        before = leaf_probe(params)
+        if s == TRAIN_STEPS - 1:
+            held = {}
+            profile = profile_device(
+                lambda: held.update(m=step(params, opt_state, batches[s])[2]),
+                1, "qwen2.5-3b train step")
+            mets = held["m"]
+        else:
+            mets, ms = timed_step(step, params, opt_state, batches[s])
+            step_ms.append(ms)
+        moved.append(sum(not torch.equal(a, b) for a, b in
+                         zip(before, leaf_probe(params))))
+        losses.append(float(mets["loss"]))
+        log(f"[train] step {s} loss {losses[-1]:.4f} grad_norm "
+            f"{float(mets['grad_norm']):.4f} lr {float(mets['lr']):.3e}")
+    per_step = {n: fn.launches / TRAIN_STEPS for n, fn in counters.items()}
+    want = {"rmsnorm": 2 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+            "flash_attention": L, "flash_attention_bwd": L}
+    for name, n in want.items():
+        if per_step[name] != n:
+            raise AssertionError(f"train: {per_step[name]} {name} launches "
+                                 f"per step, want {n}")
+    del step
+    torch.cuda.empty_cache()       # the n_micro 1 step's gradient buffer
+    step2 = prog.make_train_step(opt, n_micro=2)
+    before = leaf_probe(params)
+    mets, micro2_ms = timed_step(step2, params, opt_state,
+                                 batches[TRAIN_STEPS])
+    moved.append(sum(not torch.equal(a, b) for a, b in
+                     zip(before, leaf_probe(params))))
+    losses.append(float(mets["loss"]))
+    log(f"[train] step {TRAIN_STEPS} (n_micro 2) loss {losses[-1]:.4f} in "
+        f"{micro2_ms:.1f} ms")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    leaf_bytes = tree_bytes(params)
+    del step2, params, opt_state, batches
+    torch.cuda.empty_cache()
+
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite loss in {losses}")
+    if not float(np.mean(losses[-3:])) < losses[0]:
+        raise AssertionError(f"train: the mean of the last 3 losses "
+                             f"{np.mean(losses[-3:]):.4f} is not below the "
+                             f"first {losses[0]:.4f}: {losses}")
+    if not all(moved):
+        raise AssertionError(f"train: a step moved no parameter: {moved}")
+    if not peak < total:
+        raise AssertionError(f"train: max_memory_allocated {peak} >= the "
+                             f"card's {total}")
+    tokens = args.batch * args.seq
+    flops_ms = 6.0 * n_params * tokens / PEAK_FLOPS[torch.bfloat16] * 1e3
+    adamw_ms = 7 * 4 * n_params / PEAK_BYTES_S * 1e3   # p,g,m,v in; p,m,v out
+    med = float(np.median(step_ms[1:]))
+    res = dict(arch=cfg.name, n_layers=L, n_params=n_params, tokens=tokens,
+               lr=args.lr, warmup=args.warmup, losses=losses,
+               leaves_moved_per_step=moved,
+               step_ms=step_ms, step_ms_median=med, micro2_step_ms=micro2_ms,
+               launches=launches, launches_per_step=per_step,
+               max_memory_allocated=peak, device_total_memory=total,
+               state_bytes=dict(params=leaf_bytes, grads=leaf_bytes,
+                                m=leaf_bytes, v=leaf_bytes),
+               bound_ms=dict(flops_6NT=flops_ms, adamw_bytes=adamw_ms,
+                             total=flops_ms + adamw_ms),
+               profile=profile)
+    log(f"[train] losses {[round(x, 4) for x in losses]}; step median "
+        f"{med:.1f} ms (steps 1-{TRAIN_STEPS - 2}; step 0 "
+        f"{step_ms[0]:.1f} ms) beside its bound {flops_ms + adamw_ms:.1f} "
+        f"ms (6 N T = {6.0 * n_params * tokens:.3e} flops / 989 TFLOP/s = "
+        f"{flops_ms:.1f} ms + AdamW's {7 * 4 * n_params / 1e9:.1f} GB / "
+        f"3.35 TB/s = {adamw_ms:.1f} ms); max_memory_allocated "
+        f"{peak / 1e9:.2f} GB of {total / 1e9:.2f} GB; launches per step "
+        f"{per_step}")
+    return res
+
+
+def train_grad_check() -> dict:
+    """Full width cut to GRAD_LAYERS layers: every parameter's gradient
+    of one loss on the kernel path (forward and backward kernels) against
+    the plain path (autograd of the plain versions), same weights and
+    batch. Gate: relative RMS <= 5e-2 (the bf16 tolerance) per leaf."""
+    from repro_torch.ft.checkpoint import _flatten
+    from repro_torch.kernels import ops
+
+    args, cfg, prog, _, params, _ = train_setup(TRAIN_ARGV, GRAD_LAYERS)
+    batch = train_batches(cfg, args, 1)[0]
+    grads, losses = {}, {}
+    for mode in (None, "ref"):
+        ops.set_kernel_mode(mode)
+        try:
+            leaves = _flatten(params)
+            for p in leaves.values():
+                p.requires_grad_(True)
+                p.grad = None
+            loss, _ = prog.loss_fn(params, batch)
+            loss.backward()
+        finally:
+            ops.set_kernel_mode(None)
+        losses[mode] = float(loss.detach())
+        grads[mode] = {k: p.grad.float() for k, p in leaves.items()}
+        for p in leaves.values():
+            p.grad = None
+            p.requires_grad_(False)
+    out = {}
+    for key, gp in grads["ref"].items():
+        gk = grads[None][key]
+        out[key] = dict(rel_rms=rel_rms(gk, gp), plain_norm=float(gp.norm()),
+                        kernel_norm=float(gk.norm()))
+    bad = {k: r["rel_rms"] for k, r in out.items()
+           if not r["rel_rms"] <= TOL[torch.bfloat16]}
+    log(f"[train] {GRAD_LAYERS}-layer full-width gradients, kernel vs plain "
+        f"path, relative RMS per leaf: "
+        f"{ {k: round(r['rel_rms'], 5) for k, r in out.items()} }; loss "
+        f"kernel {losses[None]:.5f} plain {losses['ref']:.5f}")
+    del params, grads
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"train: gradients beyond 5e-2 relative RMS of "
+                             f"the plain path: {bad}")
+    return dict(layers=GRAD_LAYERS, layers_cut_from=36, losses=dict(
+        kernel=losses[None], plain=losses["ref"]), leaves=out)
+
+
+def train_short(arch: str, steps: int = 2) -> dict:
+    """``arch`` at full width: ``steps`` train steps from the launcher's
+    pieces (batch 8, seq 128); gate: finite losses."""
+    argv = ["--arch", arch, "--full", "--steps", str(steps), "--lr", "1e-3",
+            "--warmup", "3"]
+    counters = zero_launches()
+    args, cfg, prog, opt, params, opt_state = train_setup(argv)
+    batches = train_batches(cfg, args, steps)
+    step = prog.make_train_step(opt)
+    losses, ms = [], []
+    for b in batches:
+        mets, t = timed_step(step, params, opt_state, b)
+        losses.append(float(mets["loss"]))
+        ms.append(t)
+    launches = check_launches(f"train {arch}", counters, (
+        "rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd"))
+    del step, params, opt_state, batches
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train {arch}: non-finite loss in {losses}")
+    log(f"[train] {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}): "
+        f"losses {losses}, step ms {[round(t, 1) for t in ms]}")
+    return dict(arch=arch, n_layers=cfg.n_layers, losses=losses, step_ms=ms,
+                launches=launches)
+
+
+def train_drill(tmp: str) -> dict:
+    """The restart drill through the launcher: reduced qwen2.5-3b, 18
+    steps, a failure injected at step 12, checkpoints every 5 steps;
+    gate: it restores and resumes, and every loss is finite."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    counters = zero_launches()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        losses = train.main(["--arch", "qwen2.5-3b", "--reduced", "--steps",
+                             "18", "--batch", "2", "--seq", "32",
+                             "--fail-at", "12", "--ckpt-dir",
+                             os.path.join(tmp, "drill"), "--ckpt-every",
+                             "5"])
+    out = text.getvalue()
+    launches = check_launches("train drill", counters, (
+        "rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd"))
+    restored = re.search(r"restored step (\d+), resuming at (\d+)", out)
+    if not restored or not all(np.isfinite(losses)) or \
+            len(losses) < 18 - 11:
+        raise AssertionError(f"train drill: no resume, or non-finite "
+                             f"losses: {out[-2000:]}")
+    log(f"[train] drill: failure at step 12, restored step "
+        f"{restored.group(1)} and resumed at {restored.group(2)}; "
+        f"{len(losses)} losses, first {losses[0]:.4f} last {losses[-1]:.4f}")
+    return dict(restored_step=int(restored.group(1)),
+                resumed_at=int(restored.group(2)), losses=losses,
+                launches=launches)
+
+
+def train_refusal() -> dict:
+    """An ssm model cannot train on the card yet: a train step on reduced
+    mamba2-780m raises the ssd_scan backward's NotImplementedError before
+    it runs, with every parameter unchanged, and so does the launcher."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.programs import ModelProgram
+    from repro_torch.optim import AdamW, constant
+
+    cfg = get_config("mamba2-780m").reduced()
+    prog = ModelProgram(cfg)
+    params = prog.init(0, device="cuda")
+    sums = checksums(params)
+    opt = AdamW(lr=constant(1e-3))
+    toks = torch.zeros((2, 32), dtype=torch.int32, device="cuda")
+    msgs = []
+    for call in (lambda: prog.make_train_step(opt)(
+                     params, opt.init(params), {"tokens": toks,
+                                                "labels": toks}),
+                 lambda: train.main(["--arch", "mamba2-780m", "--reduced",
+                                     "--steps", "2"])):
+        try:
+            call()
+        except NotImplementedError as e:
+            if "ssd_scan" not in str(e):
+                raise
+            msgs.append(str(e))
+        else:
+            raise AssertionError("train: mamba2-780m trained on the card")
+    if checksums(params) != sums:
+        raise AssertionError("train: the refused step changed a parameter")
+    log(f"[train] mamba2-780m refused on the card (step and launcher), "
+        f"parameters unchanged: {msgs[0]}")
+    return dict(refused=True, message=msgs[0])
+
+
+def phase_train(tmp: str) -> dict:
+    """Phase 5a (module docstring)."""
+    res = dict(qwen=train_full_width())
+    res["grad_check"] = train_grad_check()
+    for arch in ("gemma3-1b", "granite-moe-1b-a400m"):
+        res[arch] = train_short(arch)
+    res["drill"] = train_drill(tmp)
+    res["refusal"] = train_refusal()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1971,7 +2504,17 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:76"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:67"),
+    # no Pallas backward exists: these replace the gradient that the
+    # reference takes with jax.value_and_grad through the forward kernel's
+    # jnp oracle
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                    "src/repro/kernels/rmsnorm.py:19"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:72"),
 }
+# the training phase's runs, each with its own launch counters
+TRAIN_PATHS = ("qwen", "gemma3-1b", "granite-moe-1b-a400m", "drill")
 ATTENTION = ("rmsnorm", "flash_attention", "decode_attention")
 # arch -> (kernels its serving path must launch, batched requests,
 #          how its logits are held to the plain path, decode profile,
@@ -2033,6 +2576,10 @@ def main() -> int:
     snap_root = tempfile.mkdtemp(prefix="hydra-chip-smoke-")
     try:
         t0 = time.perf_counter()
+        REPORT["train"] = phase_train(snap_root)
+        log(f"[train] phase done in {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         REPORT["platform"] = phase_platform(snap_root)
         log(f"[platform] phase done in {time.perf_counter() - t0:.1f}s")
         torch.cuda.empty_cache()
@@ -2061,8 +2608,11 @@ def main() -> int:
                    for arch, p in REPORT["paths"].items()}
         for path in ("platform", "cluster", "gateway"):
             by_path[path] = REPORT[path]["launches"][name]
+        for run in TRAIN_PATHS:
+            by_path[f"train {run}"] = REPORT["train"][run]["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
+            **({"backward_of": name[:-4]} if name.endswith("_bwd") else {}),
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],

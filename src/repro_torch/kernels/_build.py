@@ -92,9 +92,10 @@ def build_all() -> dict:
     return {s.stem: _target(s) for s in sources}
 
 
-def kernel(lib: str, name: str, argtypes: list):
+def kernel(lib: str, name: str, argtypes: list, restype=ctypes.c_int):
     """The C entry ``name`` of ``csrc/<lib>.cu``, built and loaded on first
-    use, with its ctypes signature set. Entries return a cudaError_t."""
+    use, with its ctypes signature set. Entries return a cudaError_t
+    unless ``restype`` says otherwise."""
     key = (lib, name)
     fn = _fns.get(key)
     if fn is not None:
@@ -105,7 +106,7 @@ def kernel(lib: str, name: str, argtypes: list):
                 _libs[stem] = ctypes.CDLL(str(path))
         fn = getattr(_libs[lib], name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _fns[key] = fn
     return fn
 

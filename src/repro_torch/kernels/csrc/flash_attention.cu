@@ -39,6 +39,11 @@
 // Semantics kept from the reference: q*scale is rounded to q's dtype, the
 // masks fill -1e30 (so a tile that is masked for a row is wiped by the
 // first valid key's rescale), and the result is acc / max(l, 1e-30).
+//
+// Both kernels optionally write each row's log-sum-exp of the scaled
+// scores, m + log(max(l, 1e-30)), as fp32 (B, Hq, S): the training
+// path's backward (flash_attention_bwd.cu) recomputes P from it. The
+// serving path passes a null pointer and writes nothing more.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -65,7 +70,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int group,
                  Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                 int causal, long long window) {
+                 int causal, long long window, float* __restrict__ lse) {
   constexpr int DPL = (HD + 31) / 32;  // head dims per lane in the PV product
   extern __shared__ float scalar_smem[];
   float(*Qs)[HD] = reinterpret_cast<float(*)[HD]>(scalar_smem);
@@ -162,6 +167,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + warp * kRowsPerWarp + r;
     if (qpos >= S) continue;
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane == 0) {
+      lse[(static_cast<long long>(b) * gridDim.y + h) * S + qpos] =
+          m[r] + logf(fmaxf(l[r], 1e-30f));
+    }
     T* orow = o + b * os.b + qpos * os.s + h * os.h;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
@@ -210,6 +219,7 @@ struct FlashArgs {
   float scale;
   int causal;
   long long window;
+  float* lse;        // (B, Hq, S) or null
 };
 
 template <int HD>
@@ -440,6 +450,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     t += __shfl_xor_sync(kFullMask, t, 1);
     t += __shfl_xor_sync(kFullMask, t, 2);
     inv[rr] = 1.0f / fmaxf(t, 1e-30f);
+    const int qpos = q0 + r0 + rr * 8;
+    if (args.lse != nullptr && (lane & 3) == 0 && qpos < S) {
+      args.lse[(static_cast<long long>(b) * gridDim.y + h) * S + qpos] =
+          m[rr] + logf(fmaxf(t, 1e-30f));
+    }
   }
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
@@ -523,7 +538,7 @@ template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int S, int Hq, int Hkv, int group, Strides qs, Strides ks,
                  Strides vs, Strides os, float scale, int causal,
-                 long long window, cudaStream_t stream) {
+                 long long window, float* lse, cudaStream_t stream) {
   using Tl = WgTile<HD>;
   CUtensorMap mq, mk, mv;
   if (!make_map<HD>(&mq, q, B, S, Hq, qs) ||
@@ -537,7 +552,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((S + kTile - 1) / kTile, Hq, B);
   const FlashArgs args{static_cast<__nv_bfloat16*>(o), os, S, group, scale,
-                       causal, window};
+                       causal, window, lse};
   flash_wgmma_kernel<HD><<<grid, kFlashThreads, Tl::kSmem, stream>>>(mq, mk, mv, args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -546,7 +561,7 @@ template <typename T, int HD>
 int launch_scalar(const void* q, const void* k, const void* v, void* o, int B,
                   int S, int Hq, int group, Strides qs, Strides ks, Strides vs,
                   Strides os, float scale, int causal, long long window,
-                  cudaStream_t stream) {
+                  float* lse, cudaStream_t stream) {
   constexpr int smem = scalar_smem_bytes<HD>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -555,7 +570,7 @@ int launch_scalar(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, group, qs, ks, vs, os,
-      scale, causal, window);
+      scale, causal, window, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -563,26 +578,27 @@ template <int HD>
 int launch(int dtype, bool tma, const void* q, const void* k, const void* v,
            void* o, int B, int S, int Hq, int Hkv, int group, Strides qs,
            Strides ks, Strides vs, Strides os, float scale, int causal,
-           long long window, cudaStream_t s) {
+           long long window, float* lse, cudaStream_t s) {
   if (dtype == kBF16) {
     if (!tma) return static_cast<int>(cudaErrorInvalidValue);
     return launch_wgmma<HD>(q, k, v, o, B, S, Hq, Hkv, group, qs, ks, vs, os,
-                            scale, causal, window, s);
+                            scale, causal, window, lse, s);
   }
   return launch_scalar<float, HD>(q, k, v, o, B, S, Hq, group, qs, ks, vs, os,
-                                  scale, causal, window, s);
+                                  scale, causal, window, lse, s);
 }
 
 }  // namespace
 
-// window <= 0 means no window. Strides are in elements.
+// window <= 0 means no window. Strides are in elements. lse: fp32
+// (B, Hq, S) log-sum-exp of each row's scaled scores, or null.
 extern "C" int hydra_flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
     int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, float scale, int causal, long long window, int dtype,
-    void* stream) {
+    void* lse, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq > 65535 || B > 65535 ||
       (dtype != kF32 && dtype != kBF16)) {
@@ -596,7 +612,7 @@ extern "C" int hydra_flash_attention(
 #define HYDRA_FLASH_HD(D)                                                       \
   case D:                                                                       \
     return launch<D>(dtype, tma, q, k, v, o, B, S, Hq, Hkv, group, qs, ks, vs, \
-                     os, scale, causal, window, s);
+                     os, scale, causal, window, static_cast<float*>(lse), s);
   switch (hd) {
     HYDRA_FLASH_HD(8)
     HYDRA_FLASH_HD(16)

@@ -9,7 +9,9 @@ reference's points too: all math in fp32, padding with ``dt=0`` to a
 multiple of the chunk, y cast back to x's dtype, the final state in fp32.
 
 These are the CPU path of every kernel wrapper and the yardstick that
-``chip_smoke.py`` holds each CUDA kernel to on the card.
+``chip_smoke.py`` holds each CUDA kernel to on the card. The backward
+kernels' plain versions (``*_bwd_ref``) are autograd's gradients of
+these, as the reference's training path differentiates its oracles.
 """
 from __future__ import annotations
 
@@ -34,6 +36,14 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + w.float())).to(dtype)
+
+
+def rmsnorm_bwd_ref(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                    eps: float = 1e-5) -> tuple:
+    """(dx, dw): autograd's gradient of ``rmsnorm_ref`` for output grad dy."""
+    with torch.enable_grad():
+        x_, w_ = x.detach().requires_grad_(), w.detach().requires_grad_()
+        return torch.autograd.grad(rmsnorm_ref(x_, w_, eps), (x_, w_), dy)
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +74,18 @@ def flash_attention_ref(q: torch.Tensor,      # (B, S, Hq, hd)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype).float(), v.float())
     return out.reshape(B, S, Hq, hd).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, causal: bool = True,
+                            window: int | None = None,
+                            scale: float | None = None) -> tuple:
+    """(dq, dk, dv): autograd's gradient of ``flash_attention_ref`` for
+    output grad dout."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_ref(*ins, causal=causal, window=window,
+                                  scale=scale)
+        return torch.autograd.grad(out, ins, dout)
 
 
 # ---------------------------------------------------------------------------

@@ -17,14 +17,17 @@ leaves are stacked on a leading L axis. The layers run in a Python loop
 over views ``leaf[i]``, so each layer's window is a Python int that the
 kernels take as a static argument.
 
-Two serving entry points: ``prefill`` (build the KV cache, last-token
-logits) and ``decode_step`` (one token against the cache). ``decode_step``
-updates the cache in place — the port's counterpart of the reference's
-buffer donation — and returns the same dict.
+Three entry points, as in the reference: ``forward`` (training: the
+whole sequence, no cache, logits and the MoE aux loss), ``prefill``
+(build the KV cache, last-token logits) and ``decode_step`` (one token
+against the cache). ``decode_step`` updates the cache in place — the
+port's counterpart of the reference's buffer donation — and returns the
+same dict.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
@@ -121,23 +124,24 @@ def _unembed(params, cfg, h: torch.Tensor) -> torch.Tensor:
     return h @ params["lm_head"].to(dt)
 
 
-def _ffn(p_l, hn: torch.Tensor, cfg, n_groups: int) -> torch.Tensor:
+def _ffn(p_l, hn: torch.Tensor, cfg, n_groups: int) -> tuple:
+    """-> (out, MoE aux loss or 0.0). The aux loss is for training; the
+    serving paths drop it, as the reference's prefill and decode do."""
     if "moe" in p_l:
-        # the aux loss is for training; serving drops it, as the
-        # reference's prefill and decode do
-        return moe_mod.apply_moe(p_l["moe"], hn, cfg, n_groups)[0]
-    return mlp_mod.apply_mlp(p_l["mlp"], hn, cfg)
+        return moe_mod.apply_moe(p_l["moe"], hn, cfg, n_groups)
+    return mlp_mod.apply_mlp(p_l["mlp"], hn, cfg), 0.0
 
 
 def _attn_ffn_prefill(p_l, h: torch.Tensor, cfg, positions, window,
                       n_groups: int = 1):
     """One attention + FFN block (a layer, or the hybrid's shared block)
-    over the prompt -> (h, (k, v))."""
+    over the whole sequence -> (h, (k, v), aux)."""
     hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
     a, kv = attn.attention_prefill(p_l["attn"], hn, cfg, positions, window)
     h = h + a
     hn = rmsnorm(h, p_l["ln2"], cfg.norm_eps)
-    return h + _ffn(p_l, hn, cfg, n_groups), kv
+    out, aux = _ffn(p_l, hn, cfg, n_groups)
+    return h + out, kv, aux
 
 
 def _attn_ffn_decode(p_l, h: torch.Tensor, cfg, k_cache, v_cache, lengths,
@@ -146,12 +150,71 @@ def _attn_ffn_decode(p_l, h: torch.Tensor, cfg, k_cache, v_cache, lengths,
     h = h + attn.attention_decode(p_l["attn"], hn, cfg, k_cache, v_cache,
                                   lengths, window)
     hn = rmsnorm(h, p_l["ln2"], cfg.norm_eps)
-    return h + _ffn(p_l, hn, cfg, n_groups)
+    return h + _ffn(p_l, hn, cfg, n_groups)[0]
 
 
 def _shared_after(cfg, i: int) -> bool:
     """Whether the hybrid's shared block follows Mamba layer ``i``."""
     return cfg.family == "hybrid" and (i + 1) % cfg.hybrid_attn_every == 0
+
+
+# ---------------------------------------------------------------------------
+# train forward (no cache)
+# ---------------------------------------------------------------------------
+def _remat_wrap(body, remat):
+    """``body`` recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``) when ``remat`` is set. The reference's
+    ``"dots"`` policy (keep the matmul outputs, recompute the rest) has no
+    exact torch counterpart; it is taken as full remat of the body, which
+    trades more recompute for less memory than the reference keeps."""
+    if not remat:
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
+def forward(params, cfg, tokens=None, embeds=None, *, remat=False,
+            n_groups: int = 1):
+    """The whole sequence, no cache -> (logits (B,S,V) in cfg.dtype, aux
+    fp32 scalar: the MoE load-balance loss summed over layers, 0 for the
+    other families). ``remat`` recomputes each layer body (the hybrid:
+    each group of Mamba layers with its shared block) in the backward."""
+    h = _embed(params, cfg, tokens, embeds)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def mamba(h, p_l):
+        hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+        return h + ssm_mod.mamba_prefill(p_l["ssm"], hn, cfg)[0]
+
+    if cfg.family == "ssm":
+        body = _remat_wrap(mamba, remat)
+        for i in range(cfg.n_layers):
+            h = body(h, _layer(params["layers"], i))
+        return _unembed(params, cfg, h), aux
+
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every
+
+        def group(h, pg, shared):
+            for p_l in pg:
+                h = mamba(h, p_l)
+            return _attn_ffn_prefill(shared, h, cfg, positions, None)[0]
+        body = _remat_wrap(group, remat)
+        for g in range(hybrid_groups(cfg)):
+            pg = [_layer(params["layers"], i) for i in range(g * k, g * k + k)]
+            h = body(h, pg, params["shared"])
+        return _unembed(params, cfg, h), aux
+
+    def layer(h, p_l, window):
+        h, _, a = _attn_ffn_prefill(p_l, h, cfg, positions, window, n_groups)
+        return h, a
+
+    body = _remat_wrap(layer, remat)
+    for i, window in enumerate(layer_windows(cfg)):
+        h, a = body(h, _layer(params["layers"], i), window)
+        aux = aux + a
+    return _unembed(params, cfg, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -171,8 +234,9 @@ def prefill(params, cfg, tokens=None, embeds=None, *, n_groups: int = 1):
     cache, ks, vs = {}, [], []
     if cfg.family not in ("ssm", "hybrid"):
         for i, window in enumerate(layer_windows(cfg)):
-            h, (k, v) = _attn_ffn_prefill(_layer(params["layers"], i), h,
-                                          cfg, positions, window, n_groups)
+            h, (k, v), _ = _attn_ffn_prefill(_layer(params["layers"], i),
+                                             h, cfg, positions, window,
+                                             n_groups)
             ks.append(k.to(dt))
             vs.append(v.to(dt))
     else:
@@ -186,8 +250,8 @@ def prefill(params, cfg, tokens=None, embeds=None, *, n_groups: int = 1):
             convs.append(conv)
             states.append(state)
             if _shared_after(cfg, i):
-                h, (k, v) = _attn_ffn_prefill(params["shared"], h, cfg,
-                                              positions, None)
+                h, (k, v), _ = _attn_ffn_prefill(params["shared"], h, cfg,
+                                                 positions, None)
                 ks.append(k.to(dt))
                 vs.append(v.to(dt))
         cache = {"conv": torch.stack(convs), "state": torch.stack(states)}

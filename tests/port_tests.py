@@ -1,8 +1,9 @@
 """Run a reference test module's assertions against the port's copies.
 
 ``port_tests("test_sim")`` reads ``tests/test_sim.py``, points its imports
-of ``repro.core`` and ``repro.gateway`` at ``repro_torch.core`` and
-``repro_torch.gateway``, executes the result as a
+of ``repro.core``, ``repro.gateway``, ``repro.data``, ``repro.ft``,
+``repro.optim`` and ``repro.launch`` at the same modules of
+``repro_torch``, executes the result as a
 module of its own, and returns its test functions (with their
 ``parametrize`` marks) and the fixtures they need. A ``test_torch_*.py``
 file binds them at module level, where pytest collects them as its own
@@ -38,7 +39,8 @@ def port_tests(module: str, *, include=None, exclude=(), fixtures=(),
         if old not in src:
             raise ValueError(f"{module}: no {old!r} to replace")
         src = src.replace(old, new)
-    src = re.sub(r"\brepro\.(core|gateway)\b", r"repro_torch.\1", src)
+    src = re.sub(r"\brepro\.(core|gateway|data|ft|optim|launch)\b",
+                 r"repro_torch.\1", src)
     ns = {"__name__": f"{module}_on_port", "__file__": str(path)}
     exec(compile(src, str(path), "exec"), ns)  # noqa: S102 — the repo's own test
     names = [n for n in ns if n.startswith("test_") and callable(ns[n])]

@@ -326,3 +326,160 @@ def test_prefill_of_several_rows_matches_plain(cuda, arch):
             ops.set_kernel_mode(None)
     for g, w in zip(got, want):
         np.testing.assert_allclose(f32(g), f32(w), **tol("float32"))
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels, the refusals, a train step
+# ---------------------------------------------------------------------------
+FLASH_BWD_CASES = [                           # B, S, Hq, Hkv, hd, causal, window
+    (8, 128, 16, 2, 128, True, None),         # qwen2.5-3b training shape
+    (1, 500, 16, 2, 128, True, None),         # a 500-token prompt
+    (2, 128, 16, 8, 64, True, None),          # granite-moe-1b-a400m: group 2
+    (1, 1024, 4, 1, 256, True, 512),          # gemma3-1b local layer
+    (2, 333, 8, 2, 128, True, None),          # ragged S
+    (1, 150, 4, 2, 80, False, 40),            # hd 80, non-causal window
+    (2, 100, 8, 1, 16, True, None),           # hd 16 (reduced configs), G 8
+    (1, 77, 4, 4, 32, True, 8),               # hd 32, a short window
+]
+RMS_BWD_SHAPES = [(8, 128, 2048), (4, 1, 1024), (4, 1, 1152), (4, 1, 6144),
+                  (2, 3, 8192), (3, 100), (13, 2048), (2, 17, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_autograd_of_plain(
+        cuda, B, S, Hq, Hkv, hd, causal, window, dtype):
+    """dq, dk, dv through ``FlashAttentionFn`` against autograd of the
+    plain version, twice bit-equal (no atomics)."""
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention_bwd)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dt)
+               for shape in ((B, S, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    dout = torch.randn((B, S, Hq, hd), generator=g, device=cuda).to(dt)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = flash_attention_bwd.launches
+    out = FlashAttentionFn.apply(*ins, causal, window, None)
+    got = torch.autograd.grad(out, ins, dout)
+    assert flash_attention_bwd.launches == n + 1
+    again = torch.autograd.grad(FlashAttentionFn.apply(*ins, causal, window,
+                                                       None), ins, dout)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                       window=window)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dt and a.shape == w.shape
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(f32(a), f32(w), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RMS_BWD_SHAPES)
+def test_rmsnorm_backward_kernel_matches_autograd_of_plain(cuda, shape, dtype,
+                                                           wdtype):
+    from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_bwd
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda).to(getattr(torch, dtype))
+    w = (torch.randn(shape[-1:], generator=g, device=cuda) * 0.1).to(
+        getattr(torch, wdtype))
+    dy = torch.randn(shape, generator=g, device=cuda).to(x.dtype)
+    xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+    n = rmsnorm_bwd.launches
+    got = torch.autograd.grad(RMSNormFn.apply(xi, wi, 1e-5), (xi, wi), dy)
+    assert rmsnorm_bwd.launches == n + 1
+    again = rmsnorm_bwd(dy, x, w)
+    want = ref.rmsnorm_bwd_ref(dy, x, w)
+    for a, b, ww in zip(got, again, want):
+        assert a.dtype == ww.dtype
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(f32(got[0]), f32(want[0]), **tol(dtype))
+    # dw sums over every row: within the tolerance of its dtype relative
+    # to the largest |dw|
+    scale = float(want[1].float().abs().max())
+    np.testing.assert_allclose(f32(got[1]) / scale, f32(want[1]) / scale,
+                               **tol(wdtype))
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_autograd(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, 4, 16), generator=g, device=cuda, requires_grad=True)
+    kc = torch.randn((2, 32, 2, 16), generator=g, device=cuda)
+    lengths = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="decode_attention"):
+        ops.decode_attention(q, kc, kc, lengths)
+    x, dt, A, Bm, Cm, _ = ssd_inputs(g, 1, 16, 2, 16, 16, False,
+                                     torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
+        ops.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, chunk=8)
+    with torch.no_grad():      # the serving path keeps the kernels
+        ops.decode_attention(q, kc, kc, lengths)
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=8)
+
+
+@pytest.mark.cuda
+def test_ssm_train_step_is_refused_on_the_card(cuda):
+    from repro_torch.optim import AdamW, constant
+    cfg = get_config("mamba2-780m").reduced()
+    prog = ModelProgram(cfg)
+    params = prog.init(0, device=cuda)
+    before = {k: v.clone() for k, v in params["layers"]["ssm"].items()}
+    opt = AdamW(lr=constant(1e-3))
+    step = prog.make_train_step(opt)
+    toks = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
+        step(params, opt.init(params), {"tokens": toks, "labels": toks})
+    for k, v in before.items():
+        assert torch.equal(params["layers"]["ssm"][k], v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-1b",
+                                  "granite-moe-1b-a400m"])
+def test_train_step_on_the_card_matches_plain(cuda, arch):
+    """One reduced fp32 train step (n_micro 2) through the kernels and
+    their backward kernels against the same step on the plain path."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.optim import AdamW, warmup_cosine
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    prog = ModelProgram(cfg, remat=False)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 32), generator=g,
+                              device=cuda, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    out = {}
+    for mode in (None, "ref"):
+        ops.set_kernel_mode(mode)
+        try:
+            params = prog.init(0, device=cuda)
+            opt = AdamW(lr=warmup_cosine(1e-2, 2, 10), eps=1e-3)
+            nf, nr = flash_attention_bwd.launches, rmsnorm_bwd.launches
+            _, state, mets = prog.make_train_step(opt, n_micro=2)(
+                params, opt.init(params), batch)
+            launched = (flash_attention_bwd.launches - nf,
+                        rmsnorm_bwd.launches - nr)
+        finally:
+            ops.set_kernel_mode(None)
+        out[mode] = (params, state, mets, launched)
+    L = cfg.n_layers
+    assert out[None][3] == (2 * L, 2 * (2 * L + 1))
+    assert out["ref"][3] == (0, 0)
+    np.testing.assert_allclose(float(out[None][2]["loss"]),
+                               float(out["ref"][2]["loss"]), rtol=1e-5)
+    for key in ("m", "v"):
+        got, want = out[None][1][key], out["ref"][1][key]
+        for a, b in zip(_leaves(got), _leaves(want)):
+            scale = max(float(b.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) / scale < 1e-4
+    for a, b in zip(_leaves(out[None][0]), _leaves(out["ref"][0])):
+        np.testing.assert_allclose(f32(a), f32(b), rtol=1e-4, atol=1e-5)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]

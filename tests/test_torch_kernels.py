@@ -261,5 +261,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_kernel_sources_present():
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert names == {"rmsnorm.cu", "flash_attention.cu",
-                     "decode_attention.cu", "ssd_scan.cu"}
+                     "decode_attention.cu", "ssd_scan.cu", "rmsnorm_bwd.cu",
+                     "flash_attention_bwd.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
