@@ -43,9 +43,16 @@ architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
    largest |dw|) and fp32 x; ``flash_attention_bwd`` (dq, dk, dv) at
    qwen's training shape (8,128,16,128) / KV 2, a 500-token prompt,
    granite-moe's hd 64 group 2, gemma3's hd 256 window 512 (S 1024), a
-   ragged S and fp32; each timed backward only (autograd over a kept
-   graph for the plain version and the library call: ``F.rms_norm``'s
-   backward, SDPA's with ``enable_gqa``) beside its bound.
+   ragged S and fp32; ``ssd_scan_bwd`` (dx, ddt, dA, dB, dC, d
+   init_state) at zamba2's and mamba2's training shapes (8 x 128, chunk
+   128, the column-slice layout), a ragged two-chunk 500-token prompt
+   with an init state and a final-state cotangent, S < 8, S = 257, the
+   served column slices and P 16, in fp32 and bf16, each gradient
+   relative to its largest |g| (dA to the sum of its terms' absolute
+   values, d init_state at 1e-3); each timed backward only (autograd over
+   a kept graph for the plain version and the library call:
+   ``F.rms_norm``'s backward, SDPA's with ``enable_gqa``; no PyTorch call
+   computes the SSD backward) beside its bound.
 2. qwen2.5-3b (dense) at full width: the port's seeded init (36 layers,
    bf16) registered in a ``HydraRuntime`` (slots 4, max_seq 1024), one
    ``generate`` per prompt (128 and 500 tokens), then six requests
@@ -90,11 +97,17 @@ architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
    backward, ``max_memory_allocated`` under the card's memory. Then the
    same model cut to 4 layers (the one cut): every parameter's gradient
    on the kernel path within 5e-2 relative RMS of the plain path's.
-   gemma3-1b and granite-moe-1b-a400m at full width take 2 steps each
-   (finite losses); the launcher's restart drill (reduced qwen2.5-3b, 18
-   steps, a failure at 12, checkpoints every 5) must resume; and reduced
-   mamba2-780m must be refused on the card (the ``ssd_scan`` backward's
-   ``NotImplementedError``) with its parameters unchanged.
+   Full-width mamba2-780m (48 layers) takes 9 steps with the same gates
+   (the loss falling), 48 ``ssd_scan`` and 49 rmsnorm launches per step
+   forward and backward; full-width zamba2-2.7b (54 Mamba2 layers, the
+   shared block applied 9 times) 4 steps with finite losses and 54 scan,
+   73 rmsnorm and 9 flash launches per step each way; each has its last
+   step profiled. Their gradient checks run at batch 2 x seq 512 (two
+   scan chunks of 256), mamba2 cut to 4 layers and zamba2 to 6 (one
+   application of the shared block). gemma3-1b and granite-moe-1b-a400m
+   at full width take 2 steps each (finite losses); the launcher's
+   restart drill (reduced qwen2.5-3b, 18 steps, a failure at 12,
+   checkpoints every 5) must resume.
 6. The platform at full width: two tenants' qwen2.5-3b functions in a
    ``HydraPlatform`` (pool 2, 16 GiB per runtime) pack into one runtime
    with the program count of one; one is generated from (a 128-token
@@ -131,6 +144,8 @@ architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
        child process at compress 120 with ``--calibration``: every
        request served or dropped, no errors, a calibration that
        ``repro_torch.core.calibrate`` loads, and the balancer's stats.
+   Legs a and b start with a full, timed garbage collection, so cycles
+   left by earlier phases are not collected inside a timed replay.
    In every leg (and the traced replay) the replay's warm-up must have
    reached every executable cache on the card, and the compiles on the
    clock, each cache's count less its count when the clock started
@@ -146,8 +161,11 @@ architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
 Each serving path sets the launch counters to 0 just before its runtime
 run and reads them just after; the platform, cluster and gateway phases
 count theirs under the paths ``platform``, ``cluster`` and ``gateway``,
-and the training runs under ``train qwen``, ``train gemma3-1b``, ``train
-granite-moe-1b-a400m`` and ``train drill``.
+and the training runs under ``train qwen``, ``train mamba2-780m``,
+``train zamba2-2.7b``, ``train gemma3-1b``, ``train
+granite-moe-1b-a400m`` and ``train drill``. The gradient checks count
+theirs apart (one step's worth on the kernel path, none on the plain
+path) and add nothing to the kernels' totals.
 
 Output: the card's name and power limit first; a ``{"kernels": [...]}``
 line before the last; and as the last line
@@ -158,6 +176,7 @@ A full report (with the compiler's register/spill report) goes to
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -870,7 +889,140 @@ def phase_backward(gen) -> dict:
         *(randn((1, 1024, h, d), bf16, gen) for h in (hq, hkv, hkv, hq)),
         "gemma3 hd256 window 512", window=GEMMA3_WINDOW)
     out["flash_attention_bwd"] = fa
+
+    # ---- ssd_scan: the training shapes (zamba2, mamba2: chunk 128 and the
+    # served column-slice layout), a ragged two-chunk prompt with an init
+    # state and a final-state cotangent, and the forward's edge cases
+    # (S < 8, S = 257, column slices, P 16)
+    from repro_torch.kernels.ssd_scan import _forward, ssd_scan_bwd
+    for B, S, H, P, N, chunk, init, strided, what in [
+            (TRAIN_B, TRAIN_S, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"], TRAIN_S,
+             False, True, "zamba2 training"),
+            (TRAIN_B, TRAIN_S, MAMBA["H"], MAMBA["P"], MAMBA["N"], TRAIN_S,
+             False, True, "mamba2 training"),
+            (1, 500, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"], SSD_CHUNK, True,
+             False, "two chunks, ragged, init + final cotangent"),
+            (1, 5, 8, 16, 16, 5, False, False, "S < 8"),
+            (1, 257, 4, 64, 64, SSD_CHUNK, False, False, "S = 257"),
+            (1, 500, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"], SSD_CHUNK, False,
+             True, "zamba2 column slices"),
+            (2, 64, 4, 16, 16, 16, False, False, "P 16")]:
+        for dt in (f32, bf16):
+            x, dtv, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, dt, strided)
+            s0 = randn((B, H, P, N), f32, gen) if init else None
+            dfin = randn((B, H, P, N), f32, gen) if init else None
+            dy = randn((B, S, H, P), dt, gen)
+            saved = _forward(x, dtv, A, Bm, Cm, chunk, s0, False,
+                             save=True)[2]
+            name = f"ssd_bwd {what} {B},{S},{H},{P} N={N} chunk={chunk} {dt}"
+            got = twice_equal(name, lambda: [g for g in ssd_scan_bwd(
+                dy, x, dtv, A, Bm, Cm, chunk=chunk, init_state=s0,
+                dfinal=dfin, saved=saved) if g is not None])
+            want = ref.ssd_scan_bwd_ref(dy, x, dtv, A, Bm, Cm, chunk=chunk,
+                                        init_state=s0, dfinal=dfin)
+            compare_ssd_grads(name, got, want, x, dtv, A, dt)
+    sb = time_ssd_bwd(gen, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"],
+                      "zamba2 training")
+    sb["mamba2"] = time_ssd_bwd(gen, MAMBA["H"], MAMBA["P"], MAMBA["N"],
+                                "mamba2 training")
+    out["ssd_scan_bwd"] = sb
     return out
+
+
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def ssd_dA_scale(x, dt, A, dx, ddt) -> float:
+    """The scale dA is held to: max over heads of sum_{b,s} |dt d a|, the
+    sum of its terms' absolute values, with d a = (ddt - sum_p x dx / dt)
+    / A from the plain version's own gradients. Its B S terms cancel, so
+    an fp32 dA, the plain version's included, is off by a share of that
+    sum rather than of its largest |dA| (tests/test_torch_ssd_bwd.py)."""
+    terms = (dt.double() * ddt.double()
+             - (x.double() * dx.double()).sum(-1)).abs().sum((0, 1))
+    return float((terms / A.double().abs()).max())
+
+
+def compare_ssd_grads(name: str, got, want, x, dt, A, dtype) -> float:
+    """ssd_scan_bwd's (dx, ddt, dA, dB, dC[, d init_state]) against the
+    plain version's: each relative to its largest |g| as compare_dw holds
+    a weight gradient, at the dtype's tolerance; dA relative to
+    ``ssd_dA_scale``; d init_state at the SSD state's 1e-3. Returns the
+    largest absolute error."""
+    err = 0.0
+    scale_dA = ssd_dA_scale(x, dt, A, want[0], want[1])
+    for nm, g, w in zip(SSD_GRADS, got, want):
+        if nm == "dA":
+            compare(f"{name} dA (/ sum |dt d a|)", g.float() / scale_dA,
+                    w.float() / scale_dA, dtype)
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        elif nm == "dinit":
+            scale = float(w.abs().max()) or 1.0
+            compare(f"{name} dinit (/ max |g|)", g / scale, w / scale,
+                    torch.float32, tol=1e-3)
+        else:
+            if g.dtype != w.dtype:
+                raise AssertionError(f"{name} {nm}: dtype {g.dtype}, plain "
+                                     f"{w.dtype}")
+            err = max(err, compare_dw(f"{name} {nm}", g, w, dtype))
+    return err
+
+
+def ssd_bwd_bound(B, S, H, P, N, chunk, dtype) -> tuple:
+    """Least time for one backward: x, dy, dt, A, B, C and the saved a_cs
+    and chunk states read once, dx, ddt, dA, dB, dC written once; the
+    products counted once (per head and chunk: dW, d dtx, dC and dB over
+    the visible (l, s) pairs, the four state products; C B^T once per
+    chunk), on the rows this S really has."""
+    xb = torch.tensor([], dtype=dtype).element_size()
+    nc = -(-S // chunk)
+    nbytes = (3 * B * S * H * P * xb + 2 * B * S * H * 4 + 2 * H * 4
+              + 4 * B * S * N * xb + B * nc * H * chunk * 4
+              + B * nc * H * P * N * 4)
+    rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    flops = 2.0 * (B * H * pairs * (2 * P + 2 * N) + B * pairs * N
+                   + 4 * B * H * S * P * N)
+    return bound(nbytes, flops, dtype)
+
+
+def time_ssd_bwd(gen, H, P, N, what: str) -> dict:
+    """ssd_scan_bwd at a training shape (8 x 128, chunk 128, bf16, the
+    column-slice layout) against autograd of the plain version, then the
+    kernel's and the plain version's backward times (backward only: the
+    kernel from the forward's saved a_cs and states, autograd over a kept
+    graph) beside the bound. No PyTorch call computes the SSD backward."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import (BwdPlan, _forward, scan_plan,
+                                              ssd_scan_bwd)
+
+    bf16 = torch.bfloat16
+    B, S, chunk = TRAIN_B, TRAIN_S, TRAIN_S
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, bf16, strided=True)
+    dy = randn((B, S, H, P), bf16, gen)
+    saved = _forward(x, dt, A, Bm, Cm, chunk, None, False, save=True)[2]
+    kern = lambda: ssd_scan_bwd(dy, x, dt, A, Bm, Cm, chunk=chunk,
+                                saved=saved)
+    err = compare_ssd_grads(f"ssd_bwd main-path {what}", kern()[:5],
+                            ref.ssd_scan_bwd_ref(dy, x, dt, A, Bm, Cm,
+                                                 chunk=chunk)[:5],
+                            x, dt, A, bf16)
+    ins = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    yp = ref.ssd_scan_ref(*ins, chunk=chunk)
+    t = timings(kern, lambda: torch.autograd.grad(yp, ins, dy,
+                                                  retain_graph=True),
+                None, iters=20)
+    b_ms, b_by = ssd_bwd_bound(B, S, H, P, N, chunk, bf16)
+    nb = f"Li{max(P, 16)}ELi{64 if N <= 64 else 128}E"
+    return dict(shape=[B, S, H, P], N=N, chunk=chunk, max_abs_err=err,
+                ctas=BwdPlan(scan_plan(S, chunk, P, N)).ctas(B, S, H, P, N),
+                ptxas={k: ptxas_usage("ssd_scan_bwd", f"bwd_{k}_kernel",
+                                      "13__nv_bfloat16", nb)
+                       for k in ("dstate", "s", "l")},
+                device_ms_by_pass=device_ms_by_kernel(
+                    kern, KERNEL_CLASSES["ssd_scan_bwd"]),
+                library="none: no PyTorch call computes the SSD backward",
+                **t, bound_ms=b_ms, bound_by=b_by)
 
 
 def time_rmsnorm_bwd(gen) -> dict:
@@ -1539,6 +1691,9 @@ KERNEL_CLASSES = {   # profiler kernel-name keys of each hand-written kernel
                  "ssd_out_kernel"),
     "rmsnorm_bwd": ("rmsnorm_bwd_kernel", "rmsnorm_dw_"),
     "flash_attention_bwd": ("flash_bwd_",),
+    "ssd_scan_bwd": ("bwd_cb_kernel", "bwd_dstate_kernel", "bwd_grec_kernel",
+                     "bwd_s_kernel", "bwd_l_kernel", "bwd_combine_kernel",
+                     "bwd_reduce_kernel"),
 }
 
 
@@ -1590,11 +1745,12 @@ def _kernel_counters() -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
             "decode_attention": decode_attention, "ssd_scan": ssd_scan,
             "rmsnorm_bwd": rmsnorm_bwd,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "ssd_scan_bwd": ssd_scan_bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -1620,6 +1776,17 @@ TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--full", "--steps", "9", "--lr",
               "1e-3", "--warmup", "3"]
 TRAIN_STEPS = 8                    # n_micro 1, then one step of n_micro 2
 GRAD_LAYERS = 4                    # the kernel-vs-plain gradient check
+# the ssm and hybrid families at full width: steps of n_micro 1 (the last
+# under the profiler), whether the loss must fall, and the gradient
+# check's depth (zamba2: one application of its shared block), at batch
+# 2 x seq 512, so that the scan there crosses a chunk boundary (256)
+SSM_TRAIN = {"mamba2-780m": (9, True, 4), "zamba2-2.7b": (4, False, 6)}
+GRAD_SSM_ARGV = ["--batch", "2", "--seq", "512"]
+
+
+def train_argv(arch: str, steps: int) -> list:
+    return ["--arch", arch, "--full", "--steps", str(steps), "--lr", "1e-3",
+            "--warmup", "3"]
 
 
 def train_setup(argv: list, layers: int | None = None):
@@ -1665,17 +1832,40 @@ def timed_step(step, params, opt_state, batch) -> tuple:
     return mets, (time.perf_counter() - t0) * 1e3
 
 
-def train_full_width() -> dict:
-    """qwen2.5-3b at full width (36 layers): 8 steps of n_micro 1 (the
-    last one under the profiler), then one of n_micro 2 (module
-    docstring)."""
+def train_launches(cfg) -> dict:
+    """Kernel launches of one train step (no remat): forward and backward
+    once each per norm, attention and scan. dense: two norms per layer and
+    the final one, an attention per layer; ssm: a pre-norm per Mamba2
+    layer and the final norm, a scan per layer; hybrid: the same plus two
+    norms and one attention per application of the shared block."""
+    from repro_torch.models.transformer import hybrid_groups
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        want = dict(rmsnorm=L + 1, ssd_scan=L)
+    elif cfg.family == "hybrid":
+        G = hybrid_groups(cfg)
+        want = dict(rmsnorm=L + 2 * G + 1, ssd_scan=L, flash_attention=G)
+    else:
+        want = dict(rmsnorm=2 * L + 1, flash_attention=L)
+    return {**want, **{f"{k}_bwd": n for k, n in want.items()}}
+
+
+def train_full_width(arch: str, steps: int, *, micro2: bool,
+                     falling: bool) -> dict:
+    """``arch`` at full width from the launcher's pieces: ``steps`` steps
+    of n_micro 1 (the last one under the profiler), then, with
+    ``micro2``, one of n_micro 2 (module docstring). Gates: finite
+    losses, every step moving every leaf, the launches per step, the
+    memory; with ``falling``, the mean of the last 3 losses below the
+    first."""
     from repro_torch.core.arena import tree_bytes
     from repro_torch.core.arena import tree_leaves
 
     torch.cuda.reset_peak_memory_stats()
-    args, cfg, prog, opt, params, opt_state = train_setup(TRAIN_ARGV)
+    argv = TRAIN_ARGV if arch == "qwen2.5-3b" else train_argv(arch, steps)
+    args, cfg, prog, opt, params, opt_state = train_setup(argv)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    batches = train_batches(cfg, args, TRAIN_STEPS + 1)
+    batches = train_batches(cfg, args, steps + micro2)
     L = cfg.n_layers
     log(f"[train] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params, fp32 masters "
@@ -1684,13 +1874,13 @@ def train_full_width() -> dict:
     counters = zero_launches()
     step = prog.make_train_step(opt, n_micro=1)
     losses, step_ms, moved, profile = [], [], [], None
-    for s in range(TRAIN_STEPS):
+    for s in range(steps):
         before = leaf_probe(params)
-        if s == TRAIN_STEPS - 1:
+        if s == steps - 1:
             held = {}
             profile = profile_device(
                 lambda: held.update(m=step(params, opt_state, batches[s])[2]),
-                1, "qwen2.5-3b train step")
+                1, f"{arch} train step")
             mets = held["m"]
         else:
             mets, ms = timed_step(step, params, opt_state, batches[s])
@@ -1700,49 +1890,52 @@ def train_full_width() -> dict:
         losses.append(float(mets["loss"]))
         log(f"[train] step {s} loss {losses[-1]:.4f} grad_norm "
             f"{float(mets['grad_norm']):.4f} lr {float(mets['lr']):.3e}")
-    per_step = {n: fn.launches / TRAIN_STEPS for n, fn in counters.items()}
-    want = {"rmsnorm": 2 * L + 1, "rmsnorm_bwd": 2 * L + 1,
-            "flash_attention": L, "flash_attention_bwd": L}
-    for name, n in want.items():
+    per_step = {n: fn.launches / steps for n, fn in counters.items()}
+    for name, n in train_launches(cfg).items():
         if per_step[name] != n:
-            raise AssertionError(f"train: {per_step[name]} {name} launches "
-                                 f"per step, want {n}")
+            raise AssertionError(f"train {arch}: {per_step[name]} {name} "
+                                 f"launches per step, want {n}")
     del step
-    torch.cuda.empty_cache()       # the n_micro 1 step's gradient buffer
-    step2 = prog.make_train_step(opt, n_micro=2)
-    before = leaf_probe(params)
-    mets, micro2_ms = timed_step(step2, params, opt_state,
-                                 batches[TRAIN_STEPS])
-    moved.append(sum(not torch.equal(a, b) for a, b in
-                     zip(before, leaf_probe(params))))
-    losses.append(float(mets["loss"]))
-    log(f"[train] step {TRAIN_STEPS} (n_micro 2) loss {losses[-1]:.4f} in "
-        f"{micro2_ms:.1f} ms")
+    micro2_ms = None
+    if micro2:
+        torch.cuda.empty_cache()   # the n_micro 1 step's gradient buffer
+        step2 = prog.make_train_step(opt, n_micro=2)
+        before = leaf_probe(params)
+        mets, micro2_ms = timed_step(step2, params, opt_state,
+                                     batches[steps])
+        moved.append(sum(not torch.equal(a, b) for a, b in
+                         zip(before, leaf_probe(params))))
+        losses.append(float(mets["loss"]))
+        log(f"[train] step {steps} (n_micro 2) loss {losses[-1]:.4f} in "
+            f"{micro2_ms:.1f} ms")
+        del step2
     launches = {n: fn.launches for n, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     leaf_bytes = tree_bytes(params)
-    del step2, params, opt_state, batches
+    n_leaves = len(tree_leaves(params))
+    del params, opt_state, batches
     torch.cuda.empty_cache()
 
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train: non-finite loss in {losses}")
-    if not float(np.mean(losses[-3:])) < losses[0]:
-        raise AssertionError(f"train: the mean of the last 3 losses "
+        raise AssertionError(f"train {arch}: non-finite loss in {losses}")
+    if falling and not float(np.mean(losses[-3:])) < losses[0]:
+        raise AssertionError(f"train {arch}: the mean of the last 3 losses "
                              f"{np.mean(losses[-3:]):.4f} is not below the "
                              f"first {losses[0]:.4f}: {losses}")
-    if not all(moved):
-        raise AssertionError(f"train: a step moved no parameter: {moved}")
+    if not all(m == n_leaves for m in moved):
+        raise AssertionError(f"train {arch}: a step left a leaf unmoved: "
+                             f"{moved} of {n_leaves}")
     if not peak < total:
-        raise AssertionError(f"train: max_memory_allocated {peak} >= the "
-                             f"card's {total}")
+        raise AssertionError(f"train {arch}: max_memory_allocated {peak} >= "
+                             f"the card's {total}")
     tokens = args.batch * args.seq
     flops_ms = 6.0 * n_params * tokens / PEAK_FLOPS[torch.bfloat16] * 1e3
     adamw_ms = 7 * 4 * n_params / PEAK_BYTES_S * 1e3   # p,g,m,v in; p,m,v out
-    med = float(np.median(step_ms[1:]))
+    med = float(np.median(step_ms[1:] or step_ms))
     res = dict(arch=cfg.name, n_layers=L, n_params=n_params, tokens=tokens,
                lr=args.lr, warmup=args.warmup, losses=losses,
-               leaves_moved_per_step=moved,
+               leaves_moved_per_step=moved, leaves=n_leaves,
                step_ms=step_ms, step_ms_median=med, micro2_step_ms=micro2_ms,
                launches=launches, launches_per_step=per_step,
                max_memory_allocated=peak, device_total_memory=total,
@@ -1751,8 +1944,8 @@ def train_full_width() -> dict:
                bound_ms=dict(flops_6NT=flops_ms, adamw_bytes=adamw_ms,
                              total=flops_ms + adamw_ms),
                profile=profile)
-    log(f"[train] losses {[round(x, 4) for x in losses]}; step median "
-        f"{med:.1f} ms (steps 1-{TRAIN_STEPS - 2}; step 0 "
+    log(f"[train] {arch} losses {[round(x, 4) for x in losses]}; step "
+        f"median {med:.1f} ms (steps 1-{steps - 2}; step 0 "
         f"{step_ms[0]:.1f} ms) beside its bound {flops_ms + adamw_ms:.1f} "
         f"ms (6 N T = {6.0 * n_params * tokens:.3e} flops / 989 TFLOP/s = "
         f"{flops_ms:.1f} ms + AdamW's {7 * 4 * n_params / 1e9:.1f} GB / "
@@ -1762,19 +1955,23 @@ def train_full_width() -> dict:
     return res
 
 
-def train_grad_check() -> dict:
-    """Full width cut to GRAD_LAYERS layers: every parameter's gradient
-    of one loss on the kernel path (forward and backward kernels) against
-    the plain path (autograd of the plain versions), same weights and
-    batch. Gate: relative RMS <= 5e-2 (the bf16 tolerance) per leaf."""
+def train_grad_check(arch: str, layers: int, argv: list) -> dict:
+    """Full width cut to ``layers`` layers: every parameter's gradient
+    of one loss on the kernel path (forward and backward kernels, each
+    launched as many times as one train step launches it) against the
+    plain path (autograd of the plain versions, no kernel launched), same
+    weights and batch. Gate: relative RMS <= 5e-2 (the bf16 tolerance)
+    per leaf."""
+    from repro_torch.configs import get_config
     from repro_torch.ft.checkpoint import _flatten
     from repro_torch.kernels import ops
 
-    args, cfg, prog, _, params, _ = train_setup(TRAIN_ARGV, GRAD_LAYERS)
+    args, cfg, prog, _, params, _ = train_setup(argv, layers)
     batch = train_batches(cfg, args, 1)[0]
-    grads, losses = {}, {}
+    grads, losses, launched = {}, {}, {}
     for mode in (None, "ref"):
         ops.set_kernel_mode(mode)
+        counters = zero_launches()
         try:
             leaves = _flatten(params)
             for p in leaves.values():
@@ -1784,11 +1981,18 @@ def train_grad_check() -> dict:
             loss.backward()
         finally:
             ops.set_kernel_mode(None)
+        launched[mode] = {n: fn.launches for n, fn in counters.items()}
         losses[mode] = float(loss.detach())
         grads[mode] = {k: p.grad.float() for k, p in leaves.items()}
         for p in leaves.values():
             p.grad = None
             p.requires_grad_(False)
+    want = train_launches(cfg)
+    if any(launched[None][n] != k for n, k in want.items()) or \
+            any(launched["ref"].values()):
+        raise AssertionError(f"train grad check {arch}: launches "
+                             f"{launched}, want {want} on the kernel path "
+                             f"and none on the plain path")
     out = {}
     for key, gp in grads["ref"].items():
         gk = grads[None][key]
@@ -1796,17 +2000,20 @@ def train_grad_check() -> dict:
                         kernel_norm=float(gk.norm()))
     bad = {k: r["rel_rms"] for k, r in out.items()
            if not r["rel_rms"] <= TOL[torch.bfloat16]}
-    log(f"[train] {GRAD_LAYERS}-layer full-width gradients, kernel vs plain "
-        f"path, relative RMS per leaf: "
-        f"{ {k: round(r['rel_rms'], 5) for k, r in out.items()} }; loss "
-        f"kernel {losses[None]:.5f} plain {losses['ref']:.5f}")
+    log(f"[train] {arch} {layers}-layer full-width gradients at batch "
+        f"{args.batch} x seq {args.seq}, kernel vs plain path, relative RMS "
+        f"per leaf: { {k: round(r['rel_rms'], 5) for k, r in out.items()}}; "
+        f"loss kernel {losses[None]:.5f} plain {losses['ref']:.5f}")
     del params, grads
     torch.cuda.empty_cache()
     if bad:
-        raise AssertionError(f"train: gradients beyond 5e-2 relative RMS of "
-                             f"the plain path: {bad}")
-    return dict(layers=GRAD_LAYERS, layers_cut_from=36, losses=dict(
-        kernel=losses[None], plain=losses["ref"]), leaves=out)
+        raise AssertionError(f"train {arch}: gradients beyond 5e-2 relative "
+                             f"RMS of the plain path: {bad}")
+    return dict(arch=arch, layers=layers,
+                layers_cut_from=get_config(arch).n_layers,
+                batch=args.batch, seq=args.seq, launches=launched[None],
+                losses=dict(kernel=losses[None], plain=losses["ref"]),
+                leaves=out)
 
 
 def train_short(arch: str, steps: int = 2) -> dict:
@@ -1868,50 +2075,20 @@ def train_drill(tmp: str) -> dict:
                 launches=launches)
 
 
-def train_refusal() -> dict:
-    """An ssm model cannot train on the card yet: a train step on reduced
-    mamba2-780m raises the ssd_scan backward's NotImplementedError before
-    it runs, with every parameter unchanged, and so does the launcher."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch import train
-    from repro_torch.models.programs import ModelProgram
-    from repro_torch.optim import AdamW, constant
-
-    cfg = get_config("mamba2-780m").reduced()
-    prog = ModelProgram(cfg)
-    params = prog.init(0, device="cuda")
-    sums = checksums(params)
-    opt = AdamW(lr=constant(1e-3))
-    toks = torch.zeros((2, 32), dtype=torch.int32, device="cuda")
-    msgs = []
-    for call in (lambda: prog.make_train_step(opt)(
-                     params, opt.init(params), {"tokens": toks,
-                                                "labels": toks}),
-                 lambda: train.main(["--arch", "mamba2-780m", "--reduced",
-                                     "--steps", "2"])):
-        try:
-            call()
-        except NotImplementedError as e:
-            if "ssd_scan" not in str(e):
-                raise
-            msgs.append(str(e))
-        else:
-            raise AssertionError("train: mamba2-780m trained on the card")
-    if checksums(params) != sums:
-        raise AssertionError("train: the refused step changed a parameter")
-    log(f"[train] mamba2-780m refused on the card (step and launcher), "
-        f"parameters unchanged: {msgs[0]}")
-    return dict(refused=True, message=msgs[0])
-
-
 def phase_train(tmp: str) -> dict:
     """Phase 5a (module docstring)."""
-    res = dict(qwen=train_full_width())
-    res["grad_check"] = train_grad_check()
+    res = dict(qwen=train_full_width("qwen2.5-3b", TRAIN_STEPS, micro2=True,
+                                     falling=True))
+    res["grad_check"] = train_grad_check("qwen2.5-3b", GRAD_LAYERS,
+                                         TRAIN_ARGV)
+    for arch, (steps, falling, layers) in SSM_TRAIN.items():
+        res[arch] = train_full_width(arch, steps, micro2=False,
+                                     falling=falling)
+        res[f"grad_check {arch}"] = train_grad_check(
+            arch, layers, train_argv(arch, 1) + GRAD_SSM_ARGV)
     for arch in ("gemma3-1b", "granite-moe-1b-a400m"):
         res[arch] = train_short(arch)
     res["drill"] = train_drill(tmp)
-    res["refusal"] = train_refusal()
     return res
 
 
@@ -2329,6 +2506,20 @@ def log_leg(name: str, r: dict) -> None:
                         for k, d in r["deltas"].items()))
 
 
+def collect_garbage(what: str) -> dict:
+    """A full garbage collection before a timed replay, timed and logged:
+    cycles left by earlier phases (the profiler's event trees among them)
+    are freed here rather than in a collector pause inside the replay,
+    where one wall second is ``compress`` trace seconds."""
+    t0 = time.perf_counter()
+    freed = gc.collect()
+    r = dict(freed=freed, s=time.perf_counter() - t0,
+             tracked=len(gc.get_objects()))
+    log(f"[gc] before {what}: {freed} unreachable objects freed in "
+        f"{r['s']:.3f} s; {r['tracked']} objects tracked")
+    return r
+
+
 def validated_leg(name: str, trace, **kw) -> dict:
     """One ``run_validation`` leg on the card; every gate must pass."""
     from repro_torch.gateway import format_report, run_validation
@@ -2456,13 +2647,14 @@ def phase_gateway(tmp: str) -> dict:
     log(f"[gateway] trace: {d['invocations']} invocations, {d['functions']} "
         f"functions, {d['tenants']} tenants over {d['duration_s']:.0f} s")
     counters = zero_launches()              # this path's run starts here
-    res = {"trace": d}
+    res = {"trace": d, "gc": {"a": collect_garbage("gateway leg a")}}
     t0 = time.perf_counter()
     res["a"] = validated_leg("a", trace, compress=60.0, pool_size=4,
                              mem_scale=1.0 / 64)
     res["a"]["traced_export"] = traced_export(tmp)
     res["a"]["leg_s"] = time.perf_counter() - t0
 
+    res["gc"]["b"] = collect_garbage("gateway leg b")
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2512,9 +2704,12 @@ SOURCES = {
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:72"),
+    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan.py:67"),
 }
 # the training phase's runs, each with its own launch counters
-TRAIN_PATHS = ("qwen", "gemma3-1b", "granite-moe-1b-a400m", "drill")
+TRAIN_PATHS = ("qwen", "mamba2-780m", "zamba2-2.7b", "gemma3-1b",
+               "granite-moe-1b-a400m", "drill")
 ATTENTION = ("rmsnorm", "flash_attention", "decode_attention")
 # arch -> (kernels its serving path must launch, batched requests,
 #          how its logits are held to the plain path, decode profile,

@@ -56,7 +56,9 @@
 // fp32 keeps the first design, ssd_scan_kernel: one block per (head,
 // row) walks the chunks in order with the state in shared memory, every
 // product a scalar fp32 FMA. wgmma and mma.sync on fp32 operands are TF32,
-// which cannot meet the fp32 check of 2e-5.
+// which cannot meet the fp32 check of 2e-5. Under autograd it also writes
+// a_cs and the state entering each chunk, which the backward reads (the
+// bf16 kernels keep both in their workspaces anyway).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -81,6 +83,8 @@ struct SsdArgs {
   long long b_sb, b_ss;
   long long c_sb, c_ss;
   long long y_sb, y_ss, y_sh;
+  float* save_acs;      // fp32 kernel: null, or a_cs and the state entering
+  float* save_st;       // each chunk for the backward (bf16: its workspaces)
 };
 
 // ---------------------------------------------------------------------------
@@ -725,6 +729,15 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(SsdArgs a) {
         acs[l] = static_cast<float>(run);
       }
     }
+    if (a.save_acs) {   // kept for the backward, laid out as the bf16 workspaces
+      __syncthreads();
+      const long long row = (static_cast<long long>(b) * ((S + chunk - 1) / chunk) +
+                             c0 / chunk) * a.H + h;
+      for (int l = tid; l < chunk; l += kThreads) a.save_acs[row * chunk + l] = acs[l];
+      for (int e = tid; e < P * N; e += kThreads) {
+        a.save_st[row * P * N + e] = st[(e / N) * NP + e % N];
+      }
+    }
 
     for (int l0 = 0; l0 < chunk; l0 += kT) {
       __syncthreads();  // acs is written; Cs of the last tile is consumed
@@ -856,9 +869,11 @@ long long smem_bytes(int P, int N, int chunk) {
 
 // Strides are in elements. init / final_state may be null. bf16 takes the
 // three fp32 workspaces ws_cb, ws_acs, ws_st sized by kernels/ssd_scan.py's
-// ScanPlan for this (B, S, H, P, N, chunk); fp32 takes none. For bf16 the
-// wrapper passes the chunk as min(chunk, S), which the reference's dt=0
-// padding makes the same scan.
+// ScanPlan for this (B, S, H, P, N, chunk); fp32 needs none, and given
+// ws_acs and ws_st it writes a_cs and the state entering each chunk there,
+// in the bf16 layout, for the backward (csrc/ssd_scan_bwd.cu). The wrapper
+// passes the chunk as min(chunk, S), which the reference's dt=0 padding
+// makes the same scan.
 extern "C" int hydra_ssd_scan(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* init, void* y, void* final_state,
@@ -875,9 +890,13 @@ extern "C" int hydra_ssd_scan(
             Bm, Cm, static_cast<const float*>(init), y,
             static_cast<float*>(final_state), S, H, N, chunk,
             x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss,
-            y_sb, y_ss, y_sh};
+            y_sb, y_ss, y_sh, nullptr, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
+    if (ws_acs && ws_st) {
+      a.save_acs = static_cast<float*>(ws_acs);
+      a.save_st = static_cast<float*>(ws_st);
+    }
     const long long smem = smem_bytes(P, N, chunk);
     if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
     return dispatch_p<float>(P, a, B, static_cast<size_t>(smem), s);

@@ -15,12 +15,13 @@ the reference's is: a single-token state update is no kernel there.
 Under autograd (grad mode on and an input that requires grad) a CUDA
 tensor that takes the kernel route goes through the kernel's
 ``torch.autograd.Function``, whose backward is a hand-written kernel too:
-``rmsnorm`` and ``flash_attention`` have one. ``decode_attention`` and
-``ssd_scan`` have none yet and raise ``NotImplementedError`` there, so no
-kernel output silently lacks a gradient (their outputs are written by
-ctypes calls and carry no ``grad_fn``). The serving path runs under
-``no_grad``/``inference_mode`` and costs one flag read more. The CPU route
-is the plain version under ordinary autograd.
+``rmsnorm``, ``flash_attention`` and ``ssd_scan`` have one, so every
+family trains on the card. ``decode_attention`` is serving only (the
+reference never differentiates it) and raises ``NotImplementedError``
+there, so no kernel output silently lacks a gradient (its output is
+written by a ctypes call and carries no ``grad_fn``). The serving path
+runs under ``no_grad``/``inference_mode`` and costs one flag read more.
+The CPU route is the plain version under ordinary autograd.
 """
 from __future__ import annotations
 
@@ -73,9 +74,8 @@ def _needs_grad(x, *more) -> bool:
 
 def missing_backward(kernel: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{kernel}: no backward kernel yet, so it cannot run under autograd "
-        f"on the card (training an ssm or hybrid model there needs a "
-        f"{kernel} backward kernel, which is not written yet)")
+        f"{kernel}: serving only, with no backward kernel, so it cannot run "
+        f"under autograd on the card")
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +112,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=None,
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None,
              return_state=False):
     if _use_kernel(x):
-        if _needs_grad(x, dt, A, Bm, Cm):
-            raise missing_backward("ssd_scan")
+        more = (dt, A, Bm, Cm) + (() if init_state is None else (init_state,))
+        if _needs_grad(x, *more):
+            return _ssd.SsdScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk,
+                                        return_state)
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                              init_state=init_state, return_state=return_state)
     return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,

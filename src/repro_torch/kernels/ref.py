@@ -214,6 +214,26 @@ def ssd_scan_ref(x: torch.Tensor,        # (B, S, H, P) inputs per head
     return y
 
 
+def ssd_scan_bwd_ref(dy, x, dt, A, Bm, Cm, *, chunk: int = 64,
+                     init_state=None, dfinal=None) -> tuple:
+    """(dx, ddt, dA, dB, dC, d init_state or None): autograd's gradient of
+    ``ssd_scan_ref`` for y's cotangent dy and, optionally, the final
+    state's ``dfinal``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        s0 = None if init_state is None else \
+            init_state.detach().requires_grad_()
+        y, sf = ssd_scan_ref(*ins, chunk=chunk, init_state=s0,
+                             return_state=True)
+        outs, cots = [y], [dy]
+        if dfinal is not None:
+            outs.append(sf)
+            cots.append(dfinal.to(sf.dtype))
+        g = torch.autograd.grad(outs, ins + ([s0] if s0 is not None else []),
+                                cots)
+    return tuple(g) + ((None,) if s0 is None else ())
+
+
 def ssd_decode_ref(x: torch.Tensor,      # (B, H, P) single-token input
                    dt: torch.Tensor,     # (B, H)
                    A: torch.Tensor,      # (H,)

@@ -4,9 +4,9 @@ their wrapper.
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py`` (``ssd_scan``
 / ``_kernel``): x (B,S,H,P), dt (B,S,H) fp32, A (H,) fp32 and the
 single-group Bm/Cm (B,S,N) give y (B,S,H,P) in x's dtype and, on request,
-the final state (B,H,P,N) fp32, from ``init_state`` or zeros. The chunk
-is taken as given; positions past S act as the reference's ``dt=0``
-padding, so the final state is exact.
+the final state (B,H,P,N) fp32, from ``init_state`` or zeros. A chunk
+longer than S is cut to S (``scan_plan``); positions past S act as the
+reference's ``dt=0`` padding, so the scan and the final state are exact.
 
 Bound on the H100: bytes at the serving shapes (x in, y out). bf16, the
 serving path, runs the chunked algorithm in three chunk-parallel kernels
@@ -23,8 +23,18 @@ unit stride), so the column slices of the serving path need no copy; an
 ``init_state`` is made contiguous fp32 first. One call counts one launch,
 however many kernels it runs.
 
-The plain version is ``kernels/ref.py:ssd_scan_ref``; the wrapper takes it
-only for tensors that lie on the CPU.
+Training: ``SsdScanFn`` (a ``torch.autograd.Function``, taken by
+``kernels/ops`` for CUDA tensors under autograd) runs the forward, keeps
+a_cs and the states entering each chunk (the bf16 kernels' workspaces;
+the fp32 kernel writes them on request) and differentiates with the
+hand-written backward ``csrc/ssd_scan_bwd.cu`` (``ssd_scan_bwd``: dx,
+ddt, dA, dB, dC and d init_state, seven kernels counted as one call;
+``BwdPlan`` says how they cut it), which has no TPU counterpart: the
+reference differentiates the jnp oracle.
+
+The plain versions are ``kernels/ref.py:ssd_scan_ref`` and
+``ssd_scan_bwd_ref``; the wrappers take them only for tensors that lie on
+the CPU.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.kernels.ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # P: the kernel is instantiated per P
 SMEM_LIMIT = 232448                # bytes of shared memory a block can use
@@ -48,6 +58,10 @@ STATE_THREADS = 256                # threads of a pass-B CTA, 4 elements each
 _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [_LL] * 13
              + [ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [_LL] * 13
+                 + [ctypes.c_int, ctypes.c_void_p])
+BWD_MAX_N = 128                    # the backward's widest state (N) bucket
+BWD_THREADS = 256                  # threads of a tiled backward CTA
 _count_lock = threading.Lock()
 
 
@@ -117,9 +131,66 @@ class ScanPlan:
         return dict(chunk=max(cb, state), out=out)
 
 
+def bwd_smem_bytes(P: int, N: int, chunk: int) -> dict:
+    """Dynamic shared memory of the backward's tiled kernels, in bytes
+    (csrc/ssd_scan_bwd.cu's bwd_smem): P padded to at least 16, N to 64 or
+    128, fp32 tiles with odd row pitches; the s and l kernels hold the
+    (P, N) state and the tile it multiplies (B, C) in a union with the
+    operands of their loop over l or s tiles."""
+    pp, np_, t, tp = max(P, 16) + 1, (64 if N <= 64 else 128) + 1, TILE, \
+        TILE + 1
+    g = (pp - 1) * np_
+    s_tiles = t * np_ + t * pp + t * tp + 16 * t
+    l_tiles = t * np_ + t * pp + t * tp
+    return dict(cb=4 * 2 * t * np_,
+                dstate=4 * (t * pp + t * np_ + chunk),
+                s=4 * (t * pp + chunk + 3 * t + max(g + t * np_, s_tiles)),
+                l=4 * (t * pp + chunk + max(g + t * np_, l_tiles)))
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the backward cuts the scan of ``plan``: its CTAs per kernel and
+    its fp32 workspaces (besides the forward's saved a_cs and states): C Bᵀ
+    tiles (B, chunks, cb_tiles, 64, 64); U_c, then G_{c+1} (B, chunks, H,
+    P, N); the per-head partial dB and dC (B, H, S, N); the per-position
+    row part, column part, r and <x, d dtx> (4, B, chunks, H, chunk); the
+    partial dA (B, chunks, H) in fp64, as two floats each."""
+    plan: ScanPlan
+
+    def ctas(self, B: int, S: int, H: int, P: int, N: int) -> dict:
+        p = self.plan
+        nch = p.chunks * H
+        return dict(cb=p.cb_tiles * p.chunks * B, dstate=nch * B,
+                    grec=-(-P * N // BWD_THREADS) * H * B,
+                    s=p.l_tiles * nch * B, l=p.l_tiles * nch * B,
+                    combine=nch * B,
+                    reduce=-(-B * S * N // BWD_THREADS)
+                    + -(-H // BWD_THREADS))
+
+    def workspace_shapes(self, B: int, S: int, H: int, P: int,
+                         N: int) -> dict:
+        p = self.plan
+        return dict(cb=(B, p.chunks, p.cb_tiles, TILE, TILE),
+                    g=(B, p.chunks, H, P, N), dbp=(B, H, S, N),
+                    dcp=(B, H, S, N), pos=(4, B, p.chunks, H, p.chunk),
+                    dap=(B, p.chunks, H, 2))
+
+    def workspace_offsets(self, B: int, S: int, H: int, P: int,
+                          N: int) -> tuple:
+        """(offsets of the workspaces in one fp32 buffer, each aligned to
+        64 floats; the buffer's length in floats)."""
+        offs, end = [], 0
+        for shape in self.workspace_shapes(B, S, H, P, N).values():
+            offs.append(end)
+            end += _up(math.prod(shape), 64)
+        return tuple(offs), end
+
+
 @functools.lru_cache(maxsize=None)
 def scan_plan(S: int, chunk: int, P: int, N: int) -> ScanPlan:
-    """The bf16 kernels' plan. A chunk longer than S is cut to S: the
+    """The kernels' plan: the bf16 forward's tiles, and the chunk of both
+    forwards and the backward. A chunk longer than S is cut to S: the
     reference pads with dt=0, which changes nothing, so the scan is the
     same and the workspaces and tiles shrink."""
     chunk = max(1, min(chunk, S))
@@ -138,63 +209,184 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state, return_state=return_state)
+    y, final, _ = _forward(x, dt, A, Bm, Cm, chunk, init_state, return_state,
+                           save=False)
+    return (y, final) if return_state else y
+
+
+ssd_scan.launches = 0     # kernel launches since the last reset
+
+
+def _check(x, dt, A, Bm, Cm, init_state, chunk, what: str) -> None:
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     tensors = [x, dt, A, Bm, Cm] + ([init_state] if init_state is not None
                                     else [])
     if not x.is_cuda or any(t.device != x.device for t in tensors):
-        raise ValueError("ssd_scan: all inputs must share one CUDA device")
+        raise ValueError(f"{what}: all inputs must share one CUDA device")
     if x.dtype not in _build.DTYPES or Bm.dtype != x.dtype \
             or Cm.dtype != x.dtype:
-        raise TypeError(f"ssd_scan: x, Bm, Cm dtypes {x.dtype}, {Bm.dtype}, "
+        raise TypeError(f"{what}: x, Bm, Cm dtypes {x.dtype}, {Bm.dtype}, "
                         f"{Cm.dtype}; need one of fp32/bf16 for all three")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
-        raise TypeError(f"ssd_scan: dt and A must be fp32, got {dt.dtype}, "
+        raise TypeError(f"{what}: dt and A must be fp32, got {dt.dtype}, "
                         f"{A.dtype}")
     if tuple(dt.shape) != (B, S, H) or tuple(A.shape) != (H,) \
             or tuple(Bm.shape) != (B, S, N) or Cm.shape != Bm.shape:
-        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+        raise ValueError(f"{what}: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
                          f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
     if P not in HEAD_DIMS:
-        raise ValueError(f"ssd_scan: head dim P={P} not in {HEAD_DIMS}")
+        raise ValueError(f"{what}: head dim P={P} not in {HEAD_DIMS}")
     if isinstance(chunk, bool) or not isinstance(chunk, int) or chunk < 1:
-        raise ValueError(f"ssd_scan: chunk must be an int >= 1, got {chunk}")
+        raise ValueError(f"{what}: chunk must be an int >= 1, got {chunk}")
+    if any(t.stride(-1) != 1 for t in (x, Bm, Cm)) \
+            or not A.is_contiguous():
+        raise ValueError(f"{what}: the last dim of x, Bm, Cm must be "
+                         f"contiguous, and A contiguous")
+    if init_state is not None and tuple(init_state.shape) != (B, H, P, N):
+        raise ValueError(f"{what}: init_state shape "
+                         f"{tuple(init_state.shape)} != {(B, H, P, N)}")
+
+
+def _forward(x, dt, A, Bm, Cm, chunk, init_state, return_state, save):
+    """One forward call -> (y, final state or None, (a_cs, states) or
+    None): with ``save`` the a_cs (B, chunks, H, chunk) and the states
+    entering each chunk (B, chunks, H, P, N), fp32 views of the call's
+    workspace that the backward reads."""
+    _check(x, dt, A, Bm, Cm, init_state, chunk, "ssd_scan")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
     bf16 = x.dtype == torch.bfloat16
-    plan = scan_plan(S, chunk, P, N) if bf16 else None
-    need = max(plan.smem().values()) if bf16 else smem_bytes(P, N, chunk)
+    plan = scan_plan(S, chunk, P, N)
+    need = max(plan.smem().values()) if bf16 else \
+        smem_bytes(P, N, plan.chunk)
     if need > SMEM_LIMIT:
         raise ValueError(f"ssd_scan: P={P}, N={N}, chunk={chunk} need "
                          f"{need} B of shared memory, over {SMEM_LIMIT}")
-    if any(t.stride(-1) != 1 for t in (x, Bm, Cm)) \
-            or not A.is_contiguous():
-        raise ValueError("ssd_scan: the last dim of x, Bm, Cm must be "
-                         "contiguous, and A contiguous")
     if init_state is not None:
-        if tuple(init_state.shape) != (B, H, P, N):
-            raise ValueError(f"ssd_scan: init_state shape "
-                             f"{tuple(init_state.shape)} != {(B, H, P, N)}")
         init_state = init_state.to(torch.float32).contiguous()
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     final = (torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
              if return_state else None)
     ptr = lambda t: t.data_ptr() if t is not None else None
-    ws = (None,) * 3
-    if bf16:
+    ws, saved = (None,) * 3, None
+    if bf16 or save:
         offs, floats = plan.workspace_offsets(B, H, P, N)
         buf = torch.empty(floats, dtype=torch.float32, device=x.device)
         ws = tuple(buf.data_ptr() + 4 * o for o in offs)
-        chunk = plan.chunk
+        if save:
+            shapes = plan.workspace_shapes(B, H, P, N)
+            saved = tuple(buf[o:o + math.prod(shapes[k])].view(shapes[k])
+                          for o, k in zip(offs[1:], ("acs", "state")))
     fn = _build.kernel("ssd_scan", "hydra_ssd_scan", _ARGTYPES)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), ptr(init_state), y.data_ptr(), ptr(final), *ws,
-             B, S, H, P, N, chunk, *x.stride()[:3], *dt.stride(),
+             B, S, H, P, N, plan.chunk, *x.stride()[:3], *dt.stride(),
              *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3],
              _build.DTYPES[x.dtype], _build.stream(x))
     _build.check(err, "ssd_scan")
     with _count_lock:
         ssd_scan.launches += 1
-    return (y, final) if return_state else y
+    return y, final, saved
 
 
-ssd_scan.launches = 0     # kernel launches since the last reset
+def ssd_scan_bwd(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                 A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, *,
+                 chunk: int = 64, init_state: torch.Tensor | None = None,
+                 dfinal: torch.Tensor | None = None, saved=None) -> tuple:
+    """(dx, ddt, dA, dB, dC, d init_state or None) for y's cotangent ``dy``
+    (x's dtype) and, optionally, the final state's ``dfinal`` (B,H,P,N):
+    dx, dB, dC in x's dtype, the rest fp32. ``saved`` is the forward's
+    (a_cs, states) (``_forward(..., save=True)``), required for CUDA
+    tensors. One call of seven kernels counts one launch."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_ref(dy, x, dt, A, Bm, Cm, chunk=chunk,
+                                init_state=init_state, dfinal=dfinal)
+    _check(x, dt, A, Bm, Cm, init_state, chunk, "ssd_scan_bwd")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if N > BWD_MAX_N:
+        raise ValueError(f"ssd_scan_bwd: N={N} over {BWD_MAX_N}")
+    plan = scan_plan(S, chunk, P, N)
+    need = max(bwd_smem_bytes(P, N, plan.chunk).values())
+    if need > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan_bwd: P={P}, N={N}, chunk={chunk} need "
+                         f"{need} B of shared memory, over {SMEM_LIMIT}")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} "
+                         f"on {dy.device}, x {tuple(x.shape)} {x.dtype}")
+    if dy.stride(-1) != 1:      # e.g. an expanded cotangent
+        dy = dy.contiguous()
+    if dfinal is not None:
+        if tuple(dfinal.shape) != (B, H, P, N) or \
+                dfinal.device != x.device:
+            raise ValueError(f"ssd_scan_bwd: dfinal shape "
+                             f"{tuple(dfinal.shape)} != {(B, H, P, N)}")
+        dfinal = dfinal.to(torch.float32).contiguous()
+    if saved is None:
+        raise ValueError("ssd_scan_bwd: needs the forward's saved a_cs and "
+                         "states (_forward(..., save=True))")
+    acs, states = saved
+    shapes = plan.workspace_shapes(B, H, P, N)
+    if tuple(acs.shape) != shapes["acs"] or \
+            tuple(states.shape) != shapes["state"] or \
+            not (acs.is_contiguous() and states.is_contiguous()):
+        raise ValueError(f"ssd_scan_bwd: saved a_cs {tuple(acs.shape)} and "
+                         f"states {tuple(states.shape)} do not match the "
+                         f"plan's {shapes['acs']}, {shapes['state']}")
+    bplan = BwdPlan(plan)
+    offs, floats = bplan.workspace_offsets(B, S, H, P, N)
+    buf = torch.empty(floats, dtype=torch.float32, device=x.device)
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
+    dA = torch.empty((H,), dtype=torch.float32, device=x.device)
+    dB = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
+    dC = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
+    dinit = (torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+             if init_state is not None else None)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    fn = _build.kernel("ssd_scan_bwd", "hydra_ssd_scan_bwd", _BWD_ARGTYPES)
+    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+             Cm.data_ptr(), dy.data_ptr(), ptr(dfinal), acs.data_ptr(),
+             states.data_ptr(), *(buf.data_ptr() + 4 * o for o in offs),
+             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+             dC.data_ptr(), ptr(dinit), B, S, H, P, N, plan.chunk,
+             *x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+             *Cm.stride()[:2], *dy.stride()[:3], _build.DTYPES[x.dtype],
+             _build.stream(x))
+    _build.check(err, "ssd_scan_bwd")
+    with _count_lock:
+        ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, dinit
+
+
+ssd_scan_bwd.launches = 0  # backward calls (7 kernels each)
+
+
+class SsdScanFn(torch.autograd.Function):
+    """ssd_scan with its hand-written backward: the training path's scan.
+    The forward keeps a_cs and the states entering each chunk; under
+    ``torch.utils.checkpoint`` they come from the rerun forward, which is
+    bit-equal to the first."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk, return_state):
+        y, final, saved = _forward(x, dt, A, Bm, Cm, chunk, init_state,
+                                   return_state, save=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state, *saved)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return (y, final) if return_state else y
+
+    @staticmethod
+    def backward(ctx, dy, dfinal=None):
+        x, dt, A, Bm, Cm, init, acs, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(
+            dy, x, dt, A, Bm, Cm, chunk=ctx.chunk, init_state=init,
+            dfinal=dfinal, saved=(acs, states))
+        if dinit is not None:
+            dinit = dinit.to(init.dtype)
+        return dx, ddt, dA, dB, dC, dinit, None, None

@@ -26,9 +26,7 @@ preallocated fp32 gradient buffer is zeroed each step, every parameter
 materialises a whole stacked leaf) is a leaf whose ``.grad`` is its view
 of the buffer, autograd accumulates into it across micro-batches, and
 the optimizer updates params and state where they lie. On the card the
-kernels' own backward kernels run (``kernels/ops``); an ssm or hybrid
-model, whose ``ssd_scan`` has no backward kernel yet, is refused before
-the step runs.
+kernels' own backward kernels run (``kernels/ops``), for every family.
 """
 from __future__ import annotations
 
@@ -38,7 +36,6 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.kernels import ops
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.moe import n_route_groups
@@ -152,15 +149,6 @@ class ModelProgram:
         loss = ce + AUX_WEIGHT * aux
         return loss, {"ce": ce, "aux": aux}
 
-    def check_trainable(self, device) -> None:
-        """Raises the missing backward kernel's ``NotImplementedError`` where
-        a train step on ``device`` would reach a kernel that has none: an
-        ssm or hybrid model (``ssd_scan``) on the card."""
-        if self.cfg.family in ("ssm", "hybrid") and \
-                torch.device(device).type == "cuda" and \
-                ops.kernel_mode() != "ref":
-            raise ops.missing_backward("ssd_scan")
-
     def make_train_step(self, optimizer, n_micro: int = 1):
         """The train step with gradient accumulation over ``n_micro``
         micro-batches; params and optimizer state are updated in place
@@ -174,7 +162,6 @@ class ModelProgram:
             return loss.detach()
 
         def train_step(params, opt_state, batch):
-            self.check_trainable(tree_leaves(params)[0].device)
             if not grads:
                 grads.update(tree_map(lambda p: torch.zeros(
                     p.shape, dtype=torch.float32, device=p.device), params))

@@ -281,8 +281,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan(torch.zeros((1, 8, 16, 2), device=cuda).transpose(-1, -2),
                  dt, A, bc, bc)
+    # a chunk is cut to S (the same scan under dt = 0 padding), so only a
+    # chunk that really is that long needs too much shared memory
+    S = 1 << 15
+    xl, dtl = torch.zeros((1, S, 2, 16), device=cuda), \
+        torch.zeros((1, S, 2), device=cuda)
+    bcl = torch.zeros((1, S, 16), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        ssd_scan(x, dt, A, bc, bc, chunk=1 << 16)
+        ssd_scan(xl, dtl, A, bcl, bcl, chunk=S)
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    b129 = torch.zeros((1, 8, 129), device=cuda)
+    with pytest.raises(ValueError, match="N=129"):
+        ssd_scan_bwd(x, x, dt, A, b129, b129, chunk=8, saved=())
+    with pytest.raises(ValueError, match="saved"):
+        ssd_scan_bwd(x, x, dt, A, bc, bc, chunk=8)
 
 
 @pytest.mark.cuda
@@ -403,8 +415,34 @@ def test_rmsnorm_backward_kernel_matches_autograd_of_plain(cuda, shape, dtype,
                                **tol(wdtype))
 
 
+def ssd_grads_close(got, want, x, dt, A, dtype, state_tol=1e-3):
+    """(dx, ddt, dA, dB, dC[, d init_state]) within the dtype's tolerance
+    of their largest |g|; dA of max_h sum_{b,s} |dt d a|, the sum of its
+    terms' absolute values (d a = (ddt - sum_p x dx / dt) / A from the
+    reference's gradients): its terms cancel, so an fp32 dA, the plain
+    version's included, is off by a share of that sum
+    (tests/test_torch_ssd_bwd.py); d init_state at the SSD state's 1e-3."""
+    atol = tol(dtype)["atol"]
+    dx, ddt = want[0].double(), want[1].double()
+    terms = (dt.double() * ddt - (x.double() * dx).sum(-1)).abs().sum((0, 1))
+    da_scale = float((terms / A.double().abs()).max())
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = da_scale if i == 2 else float(w.float().abs().max()) or 1.0
+        t = state_tol if i == 5 else atol
+        np.testing.assert_allclose(f32(g) / scale, f32(w) / scale, atol=t,
+                                   rtol=0)
+
+
 @pytest.mark.cuda
 def test_kernels_without_a_backward_raise_under_autograd(cuda):
+    """decode_attention (serving only) raises under autograd; ssd_scan,
+    which has its backward kernel now, gives autograd of the plain
+    version's gradients through it."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((2, 4, 16), generator=g, device=cuda, requires_grad=True)
     kc = torch.randn((2, 32, 2, 16), generator=g, device=cuda)
@@ -413,27 +451,111 @@ def test_kernels_without_a_backward_raise_under_autograd(cuda):
         ops.decode_attention(q, kc, kc, lengths)
     x, dt, A, Bm, Cm, _ = ssd_inputs(g, 1, 16, 2, 16, 16, False,
                                      torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        ops.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm, chunk=8)
+    dy = torch.randn(x.shape, generator=g, device=cuda)
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    n, nb = ssd_scan.launches, ssd_scan_bwd.launches
+    y = ops.ssd_scan(*ins, chunk=8)
+    got = torch.autograd.grad(y, ins, dy)
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (n + 1, nb + 1)
+    want = ref.ssd_scan_bwd_ref(dy, x, dt, A, Bm, Cm, chunk=8)
+    ssd_grads_close(got, want[:5], x, dt, A, "float32")
     with torch.no_grad():      # the serving path keeps the kernels
         ops.decode_attention(q, kc, kc, lengths)
         ops.ssd_scan(x, dt, A, Bm, Cm, chunk=8)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init", SSD_CASES + [
+    (8, 128, 80, 64, 64, 128, False),         # zamba2-2.7b training
+    (8, 128, 48, 64, 128, 128, False)])       # mamba2-780m training
+def test_ssd_scan_backward_kernel_matches_autograd_of_plain(
+        cuda, B, S, H, P, N, chunk, init, dtype):
+    """SsdScanFn (the forward keeps a_cs and the chunk states, the
+    backward kernel reads them) against autograd of the plain version,
+    with a final-state cotangent where there is an init state; a second
+    backward call is bit-equal."""
+    from repro_torch.kernels.ssd_scan import SsdScanFn, _forward, ssd_scan_bwd
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, dt, A, Bm, Cm, s0 = ssd_inputs(g, B, S, H, P, N, init,
+                                      getattr(torch, dtype), cuda)
+    dy = torch.randn(x.shape, generator=g, device=cuda).to(x.dtype)
+    dfin = torch.randn((B, H, P, N), generator=g, device=cuda) \
+        if init else None
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    s0i = s0.clone().requires_grad_() if init else None
+    n = ssd_scan_bwd.launches
+    y, sf = SsdScanFn.apply(*ins, s0i, chunk, True)
+    outs, cots = ([y, sf], [dy, dfin]) if init else ([y], [dy])
+    got = torch.autograd.grad(outs, ins + ([s0i] if init else []), cots)
+    assert ssd_scan_bwd.launches == n + 1
+    want = ref.ssd_scan_bwd_ref(dy, x, dt, A, Bm, Cm, chunk=chunk,
+                                init_state=s0, dfinal=dfin)
+    ssd_grads_close(list(got) + ([] if init else [None]), want, x, dt, A,
+                    dtype)
+    saved = _forward(x, dt, A, Bm, Cm, chunk, s0, False, save=True)[2]
+    again = ssd_scan_bwd(dy, x, dt, A, Bm, Cm, chunk=chunk, init_state=s0,
+                         dfinal=dfin, saved=saved)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_scan_backward_reads_column_slices(cuda, dtype):
+    """The training path's layout: x, Bm and Cm column slices of one
+    projection; their gradients reach the projection through the
+    slices' backward."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, S, H, P, N = 2, 200, 8, 64, 64
+    dt_ = getattr(torch, dtype)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=g, device=cuda)
+    xbc[..., H * P:] *= 0.5
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g,
+                                                  device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * 0.3)
+    dy = torch.randn((B, S, H, P), generator=g, device=cuda).to(dt_)
+    grads = {}
+    for mode in (None, "ref"):
+        ops.set_kernel_mode(mode)
+        try:
+            leaf = xbc.to(dt_).requires_grad_()
+            x = leaf[..., :H * P].reshape(B, S, H, P)
+            y = ops.ssd_scan(x, dt, A, leaf[..., H * P:H * P + N],
+                             leaf[..., H * P + N:], chunk=128)
+            grads[mode] = torch.autograd.grad(y, leaf, dy)[0]
+        finally:
+            ops.set_kernel_mode(None)
+    w = grads["ref"]
+    scale = float(w.float().abs().max())
+    np.testing.assert_allclose(f32(grads[None]) / scale, f32(w) / scale,
+                               atol=tol(dtype)["atol"], rtol=0)
+
+
+@pytest.mark.cuda
 def test_ssm_train_step_is_refused_on_the_card(cuda):
+    """Once refused, now trained: a train step on reduced mamba2-780m and
+    reduced zamba2-2.7b runs the ssd_scan backward kernel once per Mamba2
+    layer, every loss is finite and every parameter moves."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     from repro_torch.optim import AdamW, constant
-    cfg = get_config("mamba2-780m").reduced()
-    prog = ModelProgram(cfg)
-    params = prog.init(0, device=cuda)
-    before = {k: v.clone() for k, v in params["layers"]["ssm"].items()}
-    opt = AdamW(lr=constant(1e-3))
-    step = prog.make_train_step(opt)
-    toks = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        step(params, opt.init(params), {"tokens": toks, "labels": toks})
-    for k, v in before.items():
-        assert torch.equal(params["layers"]["ssm"][k], v)
+    for arch in ("mamba2-780m", "zamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        prog = ModelProgram(cfg)
+        params = prog.init(0, device=cuda)
+        leaves = _leaves(params)
+        before = [p.clone() for p in leaves]
+        opt = AdamW(lr=constant(1e-3))
+        step = prog.make_train_step(opt)
+        g = torch.Generator(device=cuda).manual_seed(0)
+        toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=g,
+                             device=cuda, dtype=torch.int32)
+        n = ssd_scan_bwd.launches
+        _, _, mets = step(params, opt.init(params), {"tokens": toks,
+                                                     "labels": toks})
+        assert ssd_scan_bwd.launches - n == cfg.n_layers
+        assert np.isfinite(float(mets["loss"]))
+        for p, b in zip(leaves, before):
+            assert not torch.equal(p, b)
 
 
 @pytest.mark.cuda
