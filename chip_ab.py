@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of two checkouts' rmsnorm and ssd_scan kernels on one
-card, in turns, so that a redesign is compared with the design before it
-in the same run.
+"""Device times of two checkouts' rmsnorm, ssd_scan, rmsnorm_bwd and
+flash_attention_bwd kernels on one card, in turns, so that a redesign is
+compared with the design before it in the same run.
 
     python3 chip_ab.py OTHER_CHECKOUT
 
@@ -11,9 +11,16 @@ checkout, builds that checkout's kernels (into its own
 chip_smoke.py's serving shapes, on the same seeded inputs: rmsnorm (bf16)
 at the decode rows of qwen2.5-3b, zamba2-2.7b and mamba2-780m and at a
 500-token prompt, beside ``F.rms_norm``; ssd_scan (bf16, chunk 256, final
-state) at zamba2-2.7b's and mamba2-780m's 500-token prefill. Each time is
-the torch.profiler device time of one call (chip_smoke.device_ms), and
-for rmsnorm also the CUDA-events time per call over back-to-back calls.
+state) at zamba2-2.7b's and mamba2-780m's 500-token prefill;
+rmsnorm_bwd (bf16 x and dy, fp32 w) at the training rows (8,128,2048),
+beside ``F.rms_norm``'s backward; flash_attention_bwd (bf16, causal) at
+qwen2.5-3b's training shape (8,128,16,128) / KV 2, a 500-token prompt,
+granite-moe's hd 64 group 2 (8,128,16,64) / KV 8 and gemma3-1b's hd 256
+window 512 (1,1024,4,256) / KV 1, beside SDPA's backward (autograd over a
+kept graph, as chip_smoke.py times it). Each time is the torch.profiler
+device time of one call (chip_smoke.device_ms), and for rmsnorm and the
+backward kernels also the CUDA-events time per call over back-to-back
+calls.
 The turns run other, this, this, other, so a drift of the card between
 them shows. Output: the card's name and power limit, then one JSON object
 with every turn; the same goes to ``chiprun_out/chip_ab.json``.
@@ -60,6 +67,65 @@ def worker(checkout: str) -> dict:
             shape=[1, 500, m["H"], m["P"]], N=m["N"],
             device_ms=cs.device_ms(lambda: ssd_scan(
                 *args, chunk=cs.SSD_CHUNK, return_state=True)))
+    out.update(backward_times(cs, gen))
+    return out
+
+
+def backward_times(cs, gen) -> dict:
+    """rmsnorm_bwd and flash_attention_bwd of the checkout on the path
+    first, and their library calls' backward, at the training shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"rmsnorm_bwd": {}, "flash_attention_bwd": {}}
+    D = cs.QWEN["D"]
+    shape = (cs.TRAIN_B, cs.TRAIN_S, D)
+    x, dy = cs.randn(shape, bf16, gen), cs.randn(shape, bf16, gen)
+    w = cs.randn((D,), f32, gen) * 0.1
+    xl = x.clone().requires_grad_()
+    wl = (1.0 + w).to(bf16).requires_grad_()
+    yl = F.rms_norm(xl, (D,), wl, 1e-5)
+    kern = lambda: rmsnorm_bwd(dy, x, w)
+    lib = lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)
+    out["rmsnorm_bwd"][str(shape)] = dict(
+        device_ms=cs.device_ms(kern), library_device_ms=cs.device_ms(lib),
+        events_ms=cs.cuda_ms(kern, iters=100))
+    H, K, hd = cs.QWEN["Hq"], cs.QWEN["Hkv"], cs.QWEN["hd"]
+    for label, (B, S, hq, hkv, d, win) in {
+            "qwen training": (cs.TRAIN_B, cs.TRAIN_S, H, K, hd, None),
+            "500-token prompt": (1, 500, H, K, hd, None),
+            "granite-moe hd64 group 2": (cs.TRAIN_B, cs.TRAIN_S,
+                                         *cs.GRANITE_MOE, None),
+            "gemma3 hd256 window 512": (1, 1024, *cs.GEMMA3,
+                                        cs.GEMMA3_WINDOW)}.items():
+        q, dout = (cs.randn((B, S, hq, d), bf16, gen) for _ in range(2))
+        k, v = (cs.randn((B, S, hkv, d), bf16, gen) for _ in range(2))
+        lse = torch.empty((B, hq, S), dtype=f32, device="cuda")
+        o = _forward(q, k, v, True, win, None, lse)
+        kern = lambda: flash_attention_bwd(q, k, v, o, lse, dout, window=win)
+        lib_in = [t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v)]
+        if win is None:
+            ol = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                                enable_gqa=True)
+        else:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - win)
+            ol = F.scaled_dot_product_attention(*lib_in, attn_mask=mask,
+                                                enable_gqa=True)
+        dlib = dout.transpose(1, 2).contiguous()
+        lib = lambda: torch.autograd.grad(ol, lib_in, dlib,
+                                          retain_graph=True)
+        out["flash_attention_bwd"][label] = dict(
+            shape=[B, S, hq, d], kv_heads=hkv, window=win,
+            device_ms=cs.device_ms(kern), library_device_ms=cs.device_ms(lib),
+            events_ms=cs.cuda_ms(kern, iters=50))
     return out
 
 

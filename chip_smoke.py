@@ -38,12 +38,15 @@ architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
    its CTA count (decode: the split plan; ssd_scan: each pass) and the
    kernels' registers and spills from the ptxas report. The backward
    kernels (training) against autograd of their plain versions, each call
-   twice and bit-equal: ``rmsnorm_bwd`` at 8 x 128 rows of d 2048, 1024,
+   twice and bit-equal: ``rmsnorm_bwd`` (one pass over the rows, then
+   the sum of the blocks' dw partials) at 8 x 128 rows of d 2048, 1024,
    1152, 6144, 8192 and 2047 (bf16 x, fp32 master w; dw relative to its
-   largest |dw|) and fp32 x; ``flash_attention_bwd`` (dq, dk, dv) at
-   qwen's training shape (8,128,16,128) / KV 2, a 500-token prompt,
-   granite-moe's hd 64 group 2, gemma3's hd 256 window 512 (S 1024), a
-   ragged S and fp32; ``ssd_scan_bwd`` (dx, ddt, dA, dB, dC, d
+   largest |dw|), fp32 x and 565 rows (chunks of 3, the last one row);
+   ``flash_attention_bwd`` (dq, dk, dv; bf16 on wgmma + TMA, the dk/dv
+   pass in clusters of one KV head's group) at qwen's training shape
+   (8,128,16,128) / KV 2, a 500-token prompt, granite-moe's hd 64 group
+   2, gemma3's hd 256 window 512 (S 1024), a ragged S, a cluster of 6
+   and fp32; ``ssd_scan_bwd`` (dx, ddt, dA, dB, dC, d
    init_state) at zamba2's and mamba2's training shapes (8 x 128, chunk
    128, the column-slice layout), a ragged two-chunk 500-token prompt
    with an init state and a final-state cotangent, S < 8, S = 257, the
@@ -144,8 +147,13 @@ architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
        child process at compress 120 with ``--calibration``: every
        request served or dropped, no errors, a calibration that
        ``repro_torch.core.calibrate`` loads, and the balancer's stats.
-   Legs a and b start with a full, timed garbage collection, so cycles
-   left by earlier phases are not collected inside a timed replay.
+   Legs a and b start with a full, timed garbage collection, then freeze
+   what survived it (``gc.freeze``), so cycles left by earlier phases are
+   not collected, nor the earlier phases' objects scanned again, inside a
+   timed replay; during the legs every collection is logged
+   (``gc.callbacks``: generation, start, duration, objects collected)
+   beside the longest ``queue_wait`` spans of the traced requests, on the
+   same clock, so a stall shows whether the collector caused it.
    In every leg (and the traced replay) the replay's warm-up must have
    reached every executable cache on the card, and the compiles on the
    clock, each cache's count less its count when the clock started
@@ -842,9 +850,11 @@ def phase_backward(gen) -> dict:
     out = {}
     # ---- rmsnorm: the training rows (8 x 128) at every width the model
     # families use, an odd width, and fp32 x; w is the fp32 master
-    for D, xd in [(2048, bf16), (1024, bf16), (1152, bf16), (6144, bf16),
-                  (8192, bf16), (2047, bf16), (2048, f32)]:
-        shape = (TRAIN_B, TRAIN_S, D)
+    for shape, xd in [((TRAIN_B, TRAIN_S, D), dt) for D, dt in [
+            (2048, bf16), (1024, bf16), (1152, bf16), (6144, bf16),
+            (8192, bf16), (2047, bf16), (2048, f32)]] + [
+            ((5, 113, 2048), bf16)]:     # 565 rows: chunks of 3, the last 1
+        D = shape[-1]
         x, dy = randn(shape, xd, gen), randn(shape, xd, gen)
         w = randn((D,), f32, gen) * 0.1
         dx, dw = twice_equal(f"rmsnorm_bwd {shape} {xd}",
@@ -856,7 +866,7 @@ def phase_backward(gen) -> dict:
 
     # ---- flash attention: qwen's training shape, a 500-token prompt,
     # granite-moe's hd 64 group 2, gemma3's hd 256 window 512, ragged S,
-    # fp32
+    # a cluster of 6 (dbrx's and nemotron's group), fp32
     H, K, hd = QWEN["Hq"], QWEN["Hkv"], QWEN["hd"]
     for B, S, hq, hkv, d, win, dt in [
             (TRAIN_B, TRAIN_S, H, K, hd, None, bf16),
@@ -864,6 +874,7 @@ def phase_backward(gen) -> dict:
             (TRAIN_B, TRAIN_S, *GRANITE_MOE, None, bf16),
             (1, 1024, *GEMMA3, GEMMA3_WINDOW, bf16),
             (2, 333, 8, 2, 128, None, bf16),
+            (2, TRAIN_S, 12, 2, 128, None, bf16),
             (2, TRAIN_S, H, K, hd, None, f32)]:
         q, dout = randn((B, S, hq, d), dt, gen), randn((B, S, hq, d), dt, gen)
         k, v = randn((B, S, hkv, d), dt, gen), randn((B, S, hkv, d), dt, gen)
@@ -1060,17 +1071,38 @@ def time_rmsnorm_bwd(gen) -> dict:
     # about 12 fp32 flops per element on the CUDA cores
     b_ms, b_by = bound(3 * n * 2 + 2 * D * 4, 12.0 * n, f32)
     rows = n // D
+    per_block = -(-rows // min(rows, 264))      # rmsnorm_bwd.cu's chunks
     return dict(shape=list(shape), w_dtype="float32", max_abs_err=err,
-                ctas=dict(dx=-(-rows // 8), dw_partial=[-(-D // 256),
-                                                        "chunks by shape"],
-                          dw_final=-(-D // 256)),
-                ptxas=ptxas_usage("rmsnorm_bwd", "rmsnorm_bwd_kernel",
-                                  "13__nv_bfloat16fLb1E"),
+                ctas=dict(rows=-(-rows // per_block), dw_final=-(-D // 32)),
+                ptxas=ptxas_usage("rmsnorm_bwd", "rmsnorm_bwd_rows_kernel",
+                                  "13__nv_bfloat16fLi1ELi4E"),
                 device_ms_by_pass=device_ms_by_kernel(
                     lambda: rmsnorm_bwd(dy, x, w),
-                    ("rmsnorm_bwd_kernel", "rmsnorm_dw_partial",
-                     "rmsnorm_dw_final")),
+                    ("rmsnorm_bwd_rows", "rmsnorm_dw_final")),
                 **t, bound_ms=b_ms, bound_by=b_by)
+
+
+def flash_bwd_waves(hd: int, group: int, ctas: int) -> dict:
+    """How many CTAs of each bf16 backward pass the card holds at once (the
+    CUDA occupancy calculator, through the kernel library), and so the
+    waves a launch of ``ctas`` CTAs takes."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.kernel("flash_attention_bwd",
+                       "hydra_flash_attention_bwd_occupancy",
+                       [ctypes.c_int, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int),
+                        ctypes.POINTER(ctypes.c_int)])
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(fn(hd, group, ctypes.byref(per_sm), ctypes.byref(clusters)),
+                 "flash_attention_bwd occupancy")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dq, dkv = per_sm.value * sms, clusters.value * group
+    return dict(dq_resident=dq, dkv_resident=dkv,
+                dq=-(-ctas // dq) if dq else None,
+                dkv=-(-ctas // dkv) if dkv else None)
 
 
 def time_flash_bwd(q, k, v, dout, name: str, window=None) -> dict:
@@ -1116,20 +1148,20 @@ def time_flash_bwd(q, k, v, dout, name: str, window=None) -> dict:
     nbytes = 4 * q.numel() * 2 + 4 * k.numel() * 2 + B * H * S * 4
     flops = 2.5 * 4.0 * hd * H * B * attention_pairs(S, True, window)
     b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
-    hs = 2 if hd > 128 else 1
+    split = 2 if hd > 128 else 1      # CTAs sharing a tile's hd columns
+    ctas = -(-S // 64) * split * H * B
+    group = H // k.shape[2]
     return dict(
         shape=list(q.shape), kv_heads=k.shape[2], window=window,
-        max_abs_err=err,
-        ctas=dict(dq=-(-S // 64) * H * B, dkv=-(-S // 64) * H * B,
-                  reduce=-(-B * S * k.shape[2] * hd // 256)),
-        threads_per_cta=128 * hs,
+        max_abs_err=err, ctas=dict(dq=ctas, dkv=ctas),
+        cluster=group, threads_per_cta=128 + 32,
+        waves=flash_bwd_waves(hd, group, ctas),
         ptxas=dict(dq=ptxas_usage("flash_attention_bwd",
-                                  "flash_bwd_dq_kernel", f"Li{hd}E"),
+                                  "flash_bwd_dq_wgmma_kernel", f"Li{hd}E"),
                    dkv=ptxas_usage("flash_attention_bwd",
-                                   "flash_bwd_dkv_kernel", f"Li{hd}E")),
+                                   "flash_bwd_dkv_wgmma_kernel", f"Li{hd}E")),
         device_ms_by_pass=device_ms_by_kernel(
-            kern, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                   "flash_bwd_reduce_kernel")),
+            kern, ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")),
         **t, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1689,7 +1721,7 @@ KERNEL_CLASSES = {   # profiler kernel-name keys of each hand-written kernel
     "decode_attention": ("decode_scores", "decode_pv", "decode_combine"),
     "ssd_scan": ("ssd_scan_kernel", "ssd_chunk_kernel", "ssd_state_kernel",
                  "ssd_out_kernel"),
-    "rmsnorm_bwd": ("rmsnorm_bwd_kernel", "rmsnorm_dw_"),
+    "rmsnorm_bwd": ("rmsnorm_bwd_", "rmsnorm_dw_"),
     "flash_attention_bwd": ("flash_bwd_",),
     "ssd_scan_bwd": ("bwd_cb_kernel", "bwd_dstate_kernel", "bwd_grec_kernel",
                      "bwd_s_kernel", "bwd_l_kernel", "bwd_combine_kernel",
@@ -2510,21 +2542,95 @@ def collect_garbage(what: str) -> dict:
     """A full garbage collection before a timed replay, timed and logged:
     cycles left by earlier phases (the profiler's event trees among them)
     are freed here rather than in a collector pause inside the replay,
-    where one wall second is ``compress`` trace seconds."""
+    where one wall second is ``compress`` trace seconds. Then every object
+    that survived it is frozen (``gc.freeze``), so no generation-2
+    collection inside the replay scans the earlier phases' objects again;
+    the phase unfreezes them at its end."""
     t0 = time.perf_counter()
     freed = gc.collect()
     r = dict(freed=freed, s=time.perf_counter() - t0,
              tracked=len(gc.get_objects()))
+    gc.freeze()
+    r["frozen"] = gc.get_freeze_count()
     log(f"[gc] before {what}: {freed} unreachable objects freed in "
-        f"{r['s']:.3f} s; {r['tracked']} objects tracked")
+        f"{r['s']:.3f} s; {r['tracked']} objects tracked, "
+        f"{r['frozen']} frozen")
     return r
 
 
+class GcLog:
+    """Every collection while it is installed (``gc.callbacks``): its
+    generation, start and duration on ``time.perf_counter`` (the clock of
+    the tracer's spans) and the objects it collected."""
+
+    def __init__(self):
+        self.events, self._t0 = [], None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.events.append(dict(gen=info["generation"], t0=self._t0,
+                                    s=time.perf_counter() - self._t0,
+                                    collected=info["collected"]))
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+
+def stall_report(name: str, gclog: GcLog, traces: list, t_start: float,
+                 top: int = 8) -> dict:
+    """A leg's collections and its longest ``queue_wait`` spans on one
+    clock (seconds from the leg's start), each wait with the collections
+    that overlap it: whether a host stall in the replay was the
+    collector."""
+    ev = gclog.events
+    waits = sorted(((sp["t1"] - sp["t0"], sp["t0"]) for t in traces
+                    for sp in t["spans"] if sp["name"] == "queue_wait"),
+                   reverse=True)[:top]
+    out = dict(
+        collections=len(ev),
+        by_gen={g: sum(e["gen"] == g for e in ev) for g in (0, 1, 2)},
+        gc_s=sum(e["s"] for e in ev),
+        longest_gc=[dict(gen=e["gen"], at_s=e["t0"] - t_start, s=e["s"],
+                         collected=e["collected"])
+                    for e in sorted(ev, key=lambda e: -e["s"])[:top]],
+        queue_wait_top=[dict(
+            s=w, at_s=t0 - t_start,
+            gc_overlap_s=sum(min(t0 + w, e["t0"] + e["s"]) - max(t0, e["t0"])
+                             for e in ev
+                             if e["t0"] < t0 + w and e["t0"] + e["s"] > t0))
+            for w, t0 in waits],
+        requests_traced=len(traces))
+    log(f"[gateway {name} gc] {out['collections']} collections "
+        f"(by generation {out['by_gen']}), {out['gc_s']:.4f} s in all; "
+        f"longest: " + ", ".join(f"gen {e['gen']} {e['s'] * 1e3:.2f} ms at "
+                                 f"+{e['at_s']:.3f} s ({e['collected']} "
+                                 f"collected)" for e in out["longest_gc"][:4]))
+    log(f"[gateway {name} stall] longest queue_wait of "
+        f"{out['requests_traced']} traced requests: "
+        + ", ".join(f"{q['s'] * 1e3:.1f} ms at +{q['at_s']:.3f} s (gc "
+                    f"{q['gc_overlap_s'] * 1e3:.1f} ms inside)"
+                    for q in out["queue_wait_top"]))
+    return out
+
+
 def validated_leg(name: str, trace, **kw) -> dict:
-    """One ``run_validation`` leg on the card; every gate must pass."""
+    """One ``run_validation`` leg on the card; every gate must pass. Every
+    request is span-traced and every collection logged, so a stall in
+    the replay shows with its cause (``stall_report``)."""
+    from repro_torch.core.tracing import Tracer
     from repro_torch.gateway import format_report, run_validation
-    report = run_validation(trace, device="cuda", round_trip=True,
-                            attribute=True, **kw)
+    tracer = Tracer(1.0, seed=0, max_traces=1 << 15)
+    t_start = time.perf_counter()
+    with GcLog() as gclog:
+        report = run_validation(trace, device="cuda", round_trip=True,
+                                attribute=True, tracer=tracer, **kw)
+    stalls = stall_report(name, gclog, tracer.traces(), t_start)
     log(format_report(report))
     if not report["ok"]:
         raise AssertionError(f"gateway {name}: {report['failures']}")
@@ -2534,7 +2640,7 @@ def validated_leg(name: str, trace, **kw) -> dict:
         if not gate["passed"]:
             raise AssertionError(f"gateway {name}: gate failed: {gate}")
     r = leg_numbers(name, report["live"], report["extras"], kw["compress"])
-    r.update(gates=report["gates"], round_trip=rt,
+    r.update(gates=report["gates"], round_trip=rt, stalls=stalls,
              deltas={k: d for k, d in report["deltas"].items()},
              attribution=report.get("attribution"),
              calibration=report["calibration"]["measured"])
@@ -2680,6 +2786,7 @@ def phase_gateway(tmp: str) -> dict:
     t0 = time.perf_counter()
     res["c"] = cluster_leg(tmp)
     res["c"]["leg_s"] = time.perf_counter() - t0
+    gc.unfreeze()
     res["launches"] = check_launches("gateway", counters, ())
     log("[gateway] the four kernels' launches over the phase are expected "
         "to be 0: the gateway's emulated function is one affine program "

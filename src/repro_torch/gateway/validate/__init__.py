@@ -173,14 +173,17 @@ def run_validation(trace, *, device=None, compress: float = 60.0,
                    sim_base: Optional[SimParams] = None,
                    round_trip: bool = False,
                    cold_slack: int = ROUNDTRIP_COLD_SLACK,
-                   attribute: bool = False) -> dict:
+                   attribute: bool = False,
+                   tracer: Optional[Tracer] = None) -> dict:
     """Replay ``trace`` live and simulated; return the delta report.
     With ``round_trip=True``, additionally derive a calibration from the
     live run itself, re-simulate with it, and gate on the calibrated sim
     tracking live at least as tightly as the uncalibrated sim. With
     ``attribute=True``, span-trace every live request and report which
     phase dominates the latency tail and the cold requests — the
-    measured explanation behind any live-vs-sim p99/cold delta."""
+    measured explanation behind any live-vs-sim p99/cold delta; a
+    ``tracer`` given with it is the one used, so the caller keeps every
+    request's spans."""
     base = sim_base or SimParams()
     live_budget = runtime_budget or max(
         4 << 20, int(base.runtime_cap * mem_scale))
@@ -194,7 +197,10 @@ def run_validation(trace, *, device=None, compress: float = 60.0,
     cfg = ReplayConfig(compress=compress, mem_scale=mem_scale,
                        n_workers=n_workers, autoscale=False,
                        slo_timeout_s=None, tenant_rate=None)
-    tracer = Tracer(1.0, seed=0) if attribute else None
+    if not attribute:
+        tracer = None
+    elif tracer is None:
+        tracer = Tracer(1.0, seed=0)
     try:
         live, extras = replay_trace(trace, platform, cfg, tracer=tracer)
     finally:

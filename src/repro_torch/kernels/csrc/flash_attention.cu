@@ -46,6 +46,7 @@
 // serving path passes a null pointer and writes nothing more.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tma.cuh"
 
 using namespace hydra;
 
@@ -183,33 +184,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // wgmma + TMA kernel (bf16)
 // ---------------------------------------------------------------------------
-constexpr int kTile = 64;              // query rows and keys per tile
 constexpr int kConsumers = 128;        // one warpgroup
 constexpr int kFlashThreads = kConsumers + 32;   // + one producer warp
-constexpr int kSmemMax = 232448;       // a block's shared memory on the H100
 
-// A tile (64 rows x hd) sits in shared memory as hd / (kSw / 2) panels of
-// 64 rows x kSw bytes, swizzled over kSw bytes: the widest of 128, 64 and
-// 32 that divides a row (hd 80's 160-byte rows take 32).
+// The tile layout is tma.cuh's SwTile; the forward adds its K/V ring depth:
+// as many stages as fit, up to 4.
 template <int HD>
-struct WgTile {
-  static constexpr int HDP = HD < 16 ? 16 : HD;  // depth padded to k16
-  static constexpr int kSw = (2 * HDP) % 128 == 0 ? 128 : (2 * HDP) % 64 == 0 ? 64 : 32;
-  static constexpr int kLayout = kSw == 128 ? 1 : kSw == 64 ? 2 : 3;  // wgmma
-  static constexpr int kPanelElems = kSw / 2;
-  static constexpr int kPanels = HDP / kPanelElems;
-  static constexpr int kPanelBytes = kTile * kSw;
-  static constexpr int kBytes = kPanels * kPanelBytes;     // one Q/K/V tile
-  // K/V ring depth: as many stages as fit, up to 4
-  static constexpr int kStages0 = (kSmemMax - 2048 - kBytes) / (2 * kBytes);
+struct WgTile : SwTile<HD> {
+  using Base = SwTile<HD>;
+  static constexpr int kStages0 = (kSmemMax - 2048 - Base::kBytes) / (2 * Base::kBytes);
   static constexpr int kStages = kStages0 > 4 ? 4 : kStages0;
-  static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 1024;  // + align
-  static_assert(HDP % 16 == 0, "head dim must pad to a multiple of 16");
+  static constexpr int kSmem = (1 + 2 * kStages) * Base::kBytes + 1024;  // + align
   static_assert(kStages >= 2, "the K/V ring needs two stages");
-  // byte offset of k-step kk (16 elements of hd) in a K-major tile
-  __host__ __device__ static constexpr int kstep(int kk) {
-    return (kk * 16 / kPanelElems) * kPanelBytes + (kk * 16 % kPanelElems) * 2;
-  }
 };
 
 struct FlashArgs {
@@ -475,65 +461,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time with
-// cudaGetDriverEntryPoint(ByVersion), so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                            : nullptr;
-  }();
-  return fn;
-}
-
-// A (B, S, H, hd) bf16 tensor as 5-D (column in a panel, s, panel, h, b),
-// box (kSw / 2, 64, panels, 1, 1), kSw-byte swizzle: one load brings a
-// 64-row tile as its panels of 64 rows x kSw bytes.
-template <int HD>
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-              const Strides& st) {
-  using Tl = WgTile<HD>;
-  constexpr int pe = Tl::kPanelElems;
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(HD < pe ? HD : pe),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(Tl::kPanels),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(st.s) * 2, Tl::kSw,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[5] = {pe, kTile, Tl::kPanels, 1, 1};
-  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             Tl::kSw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-             : Tl::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                             : CU_TENSOR_MAP_SWIZZLE_32B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool tma_ok(const void* p, const Strides& st) {   // 16-byte base and strides
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.s % 8 == 0 &&
-         st.h % 8 == 0 && st.b % 8 == 0;
-}
-
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int S, int Hq, int Hkv, int group, Strides qs, Strides ks,

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads, cp.async, warp-level mma.sync with ldmatrix, and
+// TMA tile loads and stores, thread block clusters (rank, barrier,
+// distributed shared memory), cp.async, warp-level mma.sync with ldmatrix, and
 // warpgroup matrix multiplies (wgmma) in raw PTX. The wgmma wrappers below
 // list every accumulator register, as the instruction demands; they were
 // written out by a generator for the widths the attention kernels use (n64
@@ -57,6 +58,53 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(c4)
       : "memory");
+}
+
+// ---- TMA: one 5-D box from shared memory to global -----------------------
+// (rows past the tensor's extent are skipped). The caller commits the bulk
+// group and waits for it before the CTA exits.
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until every committed bulk store has been written to global memory.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- thread block clusters: rank, barrier, distributed shared memory -----
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every CTA of the cluster: writes before it are visible to
+// cluster reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" :::
+                   "memory");
+}
+// The shared-memory address `addr` of this CTA as the same offset in CTA
+// `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---- cp.async: 16 bytes global -> shared ---------------------------------

@@ -9,20 +9,31 @@
 // repro/models/programs.py). This is the port's counterpart of that
 // gradient; its yardstick is autograd through kernels/ref.py:rmsnorm_ref.
 //
-// Bound on the H100: bytes (dy and x read, dx written, w read once; about
-// 10 flops per element). Three launches, no float atomics, so two calls
-// give the same bits:
-//  1. rmsnorm_bwd_kernel, one warp per row (up to 8 rows per block, as the
-//     forward): the row's sums of x^2 and g*x by warp shuffles, then dx;
-//     the row's r goes to a workspace. 16-byte pieces where D is a
-//     multiple of the piece and x, dy, dx are aligned to it; otherwise one
-//     element per lane (odd widths). The row is read twice, the second
-//     time from L1/L2; no register buckets, so every width takes one path.
-//  2. rmsnorm_dw_partial_kernel: one thread per column and a fixed chunk
-//     of rows per block row of the grid, writing fp32 partial column sums
-//     to the workspace (the chunking depends on the shape alone).
-//  3. rmsnorm_dw_final_kernel: one thread per column sums the partials in
-//     chunk order and stores dw.
+// Bound on the H100: bytes (dy and x read, dx written, w read once and dw
+// written; about 12 flops per element). So the design reads dy and x from
+// device memory once, for dx and dw both, in one kernel:
+//  1. rmsnorm_bwd_rows_kernel: block k owns a fixed chunk of rows, fixed by
+//     (rows, D) alone. Its 256 threads lie across the row (thread t holds
+//     the 16-byte pieces t, t + 256, ... of every row, so a row of 2,048
+//     bf16 is one piece a thread and one of 8,192 is four); it loads up to
+//     four rows at once into registers, takes each row's sums of x^2 and
+//     g*x by warp shuffles and one exchange between the 8 warps in shared
+//     memory, writes dx, and adds dy * x * r to the thread's own columns of
+//     the chunk's dw sum in registers (rows in order). It ends by writing
+//     that sum as the block's fp32 partial row. A thread across the row,
+//     not a warp per row (as the forward has): a lane of a warp per row would
+//     carry D / 32 column sums (64 at d 2048, 256 at d 8192) beside the row
+//     itself; a thread across the row carries D / 256, so the row and the
+//     sums fit registers at every width up to 8,192 bf16.
+//     Widths that are not whole pieces, unaligned pointers and rows wider
+//     than four pieces a thread take its scalar variant: one row at a
+//     time, an element a thread, the row read a second time from L1/L2
+//     for dx, the dw sums in shared memory (each column one thread's).
+//  2. rmsnorm_dw_final_kernel: 32 warps a block of 32 columns: warp w sums
+//     the partials of blocks w, w + 32, ... in order, then the 32 sums are
+//     added in warp order, and dw is stored.
+// Two launches, no float atomics, and every sum in an order fixed by the
+// shape, so two calls give the same bits.
 #include <cstdint>
 
 #include "common.cuh"
@@ -31,9 +42,11 @@ using namespace hydra;
 
 namespace {
 
-constexpr int kRows = 8;          // rows (warps) per block of pass 1
-constexpr int kColThreads = 256;  // columns per block of passes 2 and 3
-constexpr int kTargetBlocks = 264;  // pass 2's grid: about 2 blocks per SM
+constexpr int kThreads = 256;      // threads across a row, per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kFinalWarps = 32;    // warps splitting a column's partials
+constexpr int kTargetBlocks = 264; // about 2 blocks per SM
+constexpr int kMaxPieces = 4;      // 16-byte pieces a thread holds of a row
 
 template <typename T> struct Store16;
 template <> struct Store16<float> {
@@ -54,137 +67,249 @@ template <> struct Store16<__nv_bfloat16> {
   }
 };
 
-template <typename TX, typename TW, bool kVec>
-__global__ void __launch_bounds__(32 * kRows)
-rmsnorm_bwd_kernel(const TX* __restrict__ dy, const TX* __restrict__ x,
-                   const TW* __restrict__ w, TX* __restrict__ dx,
-                   float* __restrict__ rs, long long rows, int D, float eps) {
+// Sums (a[i], b[i]) over the block for each of N rows: warp shuffles, then
+// the 8 warps' values through shared memory `red` (double-buffered by the
+// caller, so one __syncthreads a batch suffices), added in warp order.
+template <int N>
+__device__ __forceinline__ void block_sum2(float (&a)[N], float (&b)[N],
+                                           float (*red)[kWarps][2]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    a[i] = warp_sum(a[i]);
+    b[i] = warp_sum(b[i]);
+    if (lane == 0) {
+      red[i][warp][0] = a[i];
+      red[i][warp][1] = b[i];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      sa += red[i][w][0];
+      sb += red[i][w][1];
+    }
+    a[i] = sa;
+    b[i] = sb;
+  }
+}
+
+// NP pieces a thread, RB rows a batch
+template <typename TX, typename TW, int NP, int RB>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_rows_kernel(const TX* __restrict__ dy, const TX* __restrict__ x,
+                        const TW* __restrict__ w, TX* __restrict__ dx,
+                        float* __restrict__ part, long long rows, int D,
+                        long long rows_per_block, float eps) {
   constexpr int V = Vec16<TX>::N;
-  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
-                        (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const TX* xr = x + row * D;
-  const TX* dyr = dy + row * D;
-  float ss = 0.f, sgx = 0.f;
-  if (kVec) {
-    for (int i = lane * V; i < D; i += 32 * V) {
-      float xv[V], dv[V];
-      Vec16<TX>::load(xr + i, xv);
-      Vec16<TX>::load(dyr + i, dv);
+  __shared__ float red[2][RB][kWarps][2];
+  const long long r0 = blockIdx.x * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+  const int t = threadIdx.x;
+  // this thread's columns: pieces c = (p * 256 + t) * V, where c < D
+  float w1[NP][V], acc[NP][V];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        ss = fmaf(xv[j], xv[j], ss);
-        sgx = fmaf(dv[j] * (1.0f + to_f(w[i + j])), xv[j], sgx);
+  for (int p = 0; p < NP; ++p) {
+    const int c = (p * kThreads + t) * V;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      w1[p][j] = c < D ? 1.0f + to_f(w[c + j]) : 0.f;
+      acc[p][j] = 0.f;
+    }
+  }
+  const float inv_d = 1.0f / static_cast<float>(D);
+  int buf = 0;
+  for (long long row = r0; row < r1; row += RB, buf ^= 1) {
+    float xv[RB][NP][V], dv[RB][NP][V], ss[RB], sgx[RB];
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int c = (p * kThreads + t) * V;
+        if (row + i < r1 && c < D) {
+          Vec16<TX>::load(x + (row + i) * D + c, xv[i][p]);
+          Vec16<TX>::load(dy + (row + i) * D + c, dv[i][p]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) xv[i][p][j] = dv[i][p][j] = 0.f;
+        }
       }
     }
-  } else {
-    for (int i = lane; i < D; i += 32) {
-      const float xv = to_f(xr[i]);
-      ss = fmaf(xv, xv, ss);
-      sgx = fmaf(to_f(dyr[i]) * (1.0f + to_f(w[i])), xv, sgx);
-    }
-  }
-  ss = warp_sum(ss);
-  sgx = warp_sum(sgx);
-  const float r = rsqrtf(ss / static_cast<float>(D) + eps);
-  const float c = r * r * (sgx / static_cast<float>(D));   // dx = r (g - x c)
-  TX* dxr = dx + row * D;
-  if (kVec) {
-    for (int i = lane * V; i < D; i += 32 * V) {
-      float xv[V], dv[V], o[V];
-      Vec16<TX>::load(xr + i, xv);
-      Vec16<TX>::load(dyr + i, dv);
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        o[j] = r * (dv[j] * (1.0f + to_f(w[i + j])) - xv[j] * c);
+    for (int i = 0; i < RB; ++i) {
+      ss[i] = sgx[i] = 0.f;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          ss[i] = fmaf(xv[i][p][j], xv[i][p][j], ss[i]);
+          sgx[i] = fmaf(dv[i][p][j] * w1[p][j], xv[i][p][j], sgx[i]);
+        }
       }
-      Store16<TX>::store(dxr + i, o);
     }
-  } else {
-    for (int i = lane; i < D; i += 32) {
-      const float g = to_f(dyr[i]) * (1.0f + to_f(w[i]));
-      dxr[i] = from_f<TX>(r * (g - to_f(xr[i]) * c));
+    block_sum2<RB>(ss, sgx, red[buf]);
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      if (row + i >= r1) break;
+      const float r = rsqrtf(ss[i] * inv_d + eps);
+      const float cc = r * r * (sgx[i] * inv_d);   // dx = r (g - x cc)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int c = (p * kThreads + t) * V;
+        if (c >= D) continue;
+        float o[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          o[j] = r * (dv[i][p][j] * w1[p][j] - xv[i][p][j] * cc);
+          acc[p][j] = fmaf(dv[i][p][j] * xv[i][p][j], r, acc[p][j]);
+        }
+        Store16<TX>::store(dx + (row + i) * D + c, o);
+      }
     }
   }
-  if (lane == 0) rs[row] = r;
-}
-
-// part[chunk][c] = sum over the chunk's rows of dy * x * r, in row order
-template <typename TX>
-__global__ void __launch_bounds__(kColThreads)
-rmsnorm_dw_partial_kernel(const TX* __restrict__ dy, const TX* __restrict__ x,
-                          const float* __restrict__ rs, float* __restrict__ part,
-                          long long rows, int D, long long rows_per_chunk) {
-  const int c = blockIdx.x * kColThreads + threadIdx.x;
-  if (c >= D) return;
-  const long long r0 = blockIdx.y * rows_per_chunk;
-  const long long r1 = min(rows, r0 + rows_per_chunk);
-  float acc = 0.f;
-  for (long long row = r0; row < r1; ++row) {
-    acc = fmaf(to_f(dy[row * D + c]) * to_f(x[row * D + c]), rs[row], acc);
+  float* out = part + static_cast<long long>(blockIdx.x) * D;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const int c = (p * kThreads + t) * V;
+    if (c < D) Store16<float>::store(out + c, acc[p]);
+    if (V == 8 && c < D) Store16<float>::store(out + c + 4, acc[p] + 4);
   }
-  part[static_cast<long long>(blockIdx.y) * D + c] = acc;
 }
 
+// The scalar variant: a row at a time, an element a thread; the dw sums in
+// shared memory (D floats, column c held by thread c % 256 alone).
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_scalar_kernel(const TX* __restrict__ dy, const TX* __restrict__ x,
+                          const TW* __restrict__ w, TX* __restrict__ dx,
+                          float* __restrict__ part, long long rows, int D,
+                          long long rows_per_block, float eps) {
+  extern __shared__ float dws[];
+  __shared__ float red[2][1][kWarps][2];
+  const long long r0 = blockIdx.x * rows_per_block;
+  const long long r1 = min(rows, r0 + rows_per_block);
+  const int t = threadIdx.x;
+  for (int c = t; c < D; c += kThreads) dws[c] = 0.f;
+  const float inv_d = 1.0f / static_cast<float>(D);
+  int buf = 0;
+  for (long long row = r0; row < r1; ++row, buf ^= 1) {
+    const TX* xr = x + row * D;
+    const TX* dyr = dy + row * D;
+    float ss[1] = {0.f}, sgx[1] = {0.f};
+    for (int c = t; c < D; c += kThreads) {
+      const float xv = to_f(xr[c]);
+      ss[0] = fmaf(xv, xv, ss[0]);
+      sgx[0] = fmaf(to_f(dyr[c]) * (1.0f + to_f(w[c])), xv, sgx[0]);
+    }
+    block_sum2<1>(ss, sgx, red[buf]);
+    const float r = rsqrtf(ss[0] * inv_d + eps);
+    const float cc = r * r * (sgx[0] * inv_d);
+    TX* dxr = dx + row * D;
+    for (int c = t; c < D; c += kThreads) {
+      const float xv = to_f(xr[c]), dv = to_f(dyr[c]);
+      dxr[c] = from_f<TX>(r * (dv * (1.0f + to_f(w[c])) - xv * cc));
+      dws[c] = fmaf(dv * xv, r, dws[c]);
+    }
+  }
+  float* out = part + static_cast<long long>(blockIdx.x) * D;
+  for (int c = t; c < D; c += kThreads) out[c] = dws[c];
+}
+
+// dw[c] = the sum of the blocks' partials part[k][c]: warp w of a block of
+// 32 columns sums k = w, w + 32, w + 64, ... in order, then warp 0 adds the
+// 32 warps' sums in warp order. The order is the shape's, so are the bits.
+// A thread a column would be one chain of up to 264 dependent loads and
+// adds on 8 blocks: latency, at the training rows slower than the rows.
 template <typename TW>
-__global__ void __launch_bounds__(kColThreads)
+__global__ void __launch_bounds__(32 * kFinalWarps)
 rmsnorm_dw_final_kernel(const float* __restrict__ part, TW* __restrict__ dw,
-                        int chunks, int D) {
-  const int c = blockIdx.x * kColThreads + threadIdx.x;
-  if (c >= D) return;
+                        int blocks, int D) {
+  __shared__ float sums[kFinalWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
   float acc = 0.f;
-  for (int k = 0; k < chunks; ++k) acc += part[static_cast<long long>(k) * D + c];
-  dw[c] = from_f<TW>(acc);
+  if (c < D) {
+#pragma unroll 4
+    for (int k = warp; k < blocks; k += kFinalWarps) {
+      acc += part[static_cast<long long>(k) * D + c];
+    }
+  }
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && c < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kFinalWarps; ++w) t += sums[w][lane];
+    dw[c] = from_f<TW>(t);
+  }
+}
+
+// the row chunking: a function of (rows, D) alone, so the sums' order (and
+// the bits of dw) never change between calls
+long long rows_per_block(long long rows) {
+  const long long blocks = rows < kTargetBlocks ? rows : kTargetBlocks;
+  return (rows + blocks - 1) / blocks;
+}
+
+template <typename TX, typename TW, int NP>
+void launch_rows(const TX* dy, const TX* x, const TW* w, TX* dx, float* part,
+                 long long rows, int D, long long rpb, unsigned blocks, float eps,
+                 cudaStream_t s) {
+  constexpr int RB = NP == 1 ? 4 : NP == 2 ? 2 : 1;
+  rmsnorm_bwd_rows_kernel<TX, TW, NP, RB><<<blocks, kThreads, 0, s>>>(dy, x, w, dx, part,
+                                                                     rows, D, rpb, eps);
 }
 
 template <typename TX, typename TW>
 int launch(const void* dy, const void* x, const void* w, void* dx, void* dw,
-           float* ws, long long rows, int D, float eps, cudaStream_t stream) {
+           float* part, long long rows, int D, float eps, cudaStream_t stream) {
   constexpr int V = Vec16<TX>::N;
-  const int per_block = rows < kRows ? static_cast<int>(rows) : kRows;
-  const long long blocks = (rows + per_block - 1) / per_block;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rpb = rows_per_block(rows);
+  const long long blocks = (rows + rpb - 1) / rpb;
   const auto ua = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const bool vec = D % V == 0 && ua(x) && ua(dy) && ua(dx);
+  const int pieces = (D / V + kThreads - 1) / kThreads;
+  const bool vec = D % V == 0 && ua(x) && ua(dy) && ua(dx) && pieces <= kMaxPieces;
   const TX* dyp = static_cast<const TX*>(dy);
   const TX* xp = static_cast<const TX*>(x);
   const TW* wp = static_cast<const TW*>(w);
   TX* dxp = static_cast<TX*>(dx);
-  float* rs = ws;
-  float* part = ws + rows;
+  const unsigned nb = static_cast<unsigned>(blocks);
   if (vec) {
-    rmsnorm_bwd_kernel<TX, TW, true><<<static_cast<unsigned>(blocks), 32 * per_block, 0,
-                                       stream>>>(dyp, xp, wp, dxp, rs, rows, D, eps);
+    switch (pieces) {
+      case 1: launch_rows<TX, TW, 1>(dyp, xp, wp, dxp, part, rows, D, rpb, nb, eps, stream); break;
+      case 2: launch_rows<TX, TW, 2>(dyp, xp, wp, dxp, part, rows, D, rpb, nb, eps, stream); break;
+      case 3: launch_rows<TX, TW, 3>(dyp, xp, wp, dxp, part, rows, D, rpb, nb, eps, stream); break;
+      default: launch_rows<TX, TW, 4>(dyp, xp, wp, dxp, part, rows, D, rpb, nb, eps, stream); break;
+    }
   } else {
-    rmsnorm_bwd_kernel<TX, TW, false><<<static_cast<unsigned>(blocks), 32 * per_block, 0,
-                                        stream>>>(dyp, xp, wp, dxp, rs, rows, D, eps);
+    const int smem = D * 4;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(rmsnorm_bwd_scalar_kernel<TX, TW>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    rmsnorm_bwd_scalar_kernel<TX, TW><<<nb, kThreads, smem, stream>>>(dyp, xp, wp, dxp, part,
+                                                                      rows, D, rpb, eps);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // pass 2's chunking: a function of (rows, D) alone, so the sums' order
-  // (and the bits of dw) never change between calls
-  const int col_blocks = (D + kColThreads - 1) / kColThreads;
-  long long chunks = kTargetBlocks / col_blocks;
-  chunks = chunks < 1 ? 1 : chunks > rows ? rows : chunks;
-  const long long rows_per_chunk = (rows + chunks - 1) / chunks;
-  chunks = (rows + rows_per_chunk - 1) / rows_per_chunk;
-  rmsnorm_dw_partial_kernel<TX><<<dim3(col_blocks, static_cast<unsigned>(chunks)),
-                                  kColThreads, 0, stream>>>(dyp, xp, rs, part, rows, D,
-                                                            rows_per_chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_dw_final_kernel<TW><<<col_blocks, kColThreads, 0, stream>>>(
-      part, static_cast<TW*>(dw), static_cast<int>(chunks), D);
+  rmsnorm_dw_final_kernel<TW><<<(D + 31) / 32, 32 * kFinalWarps, 0, stream>>>(
+      part, static_cast<TW*>(dw), nb, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The fp32 workspace holds rows + min(rows, 264) * D floats: each row's r,
-// then pass 2's partial column sums.
+// The fp32 workspace holds blocks * D floats, blocks = ceil(rows / rows per
+// block): each block's partial column sums of dw.
 extern "C" long long hydra_rmsnorm_bwd_workspace(long long rows, int D) {
-  return rows + (rows < kTargetBlocks ? rows : kTargetBlocks) * static_cast<long long>(D);
+  if (rows <= 0) return 0;
+  const long long rpb = rows_per_block(rows);
+  return (rows + rpb - 1) / rpb * static_cast<long long>(D);
 }
 
 extern "C" int hydra_rmsnorm_bwd(const void* dy, const void* x, const void* w, void* dx,

@@ -27,7 +27,12 @@ Training: ``FlashAttentionFn`` (a ``torch.autograd.Function``, taken by
 kernel with its optional log-sum-exp output and the hand-written
 backward ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``: dq,
 dk, dv; head dims ``BWD_HEAD_DIMS``), which has no TPU counterpart: the
-reference differentiates the jnp oracle.
+reference differentiates the jnp oracle. Its bf16 path is built like the
+forward (``wgmma`` fed by a TMA ring): a dq pass, then a dk/dv pass in
+thread block clusters of one KV head's group, which sums the group's dK
+and dV through distributed shared memory in head order (deterministic,
+no fp32 partials in device memory); a group above ``MAX_BWD_GROUP``
+raises.
 
 The plain versions are ``kernels/ref.py:flash_attention_ref`` and
 ``flash_attention_bwd_ref``; the wrappers take them only for tensors that
@@ -45,6 +50,7 @@ from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+MAX_BWD_GROUP = 8      # the portable thread block cluster size
 _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [_LL] * 12
              + [ctypes.c_float, ctypes.c_int, _LL, ctypes.c_int,
@@ -93,6 +99,16 @@ def _check(q, k, v, what: str, head_dims: tuple) -> None:
                          f"cp.async)")
 
 
+def _check_group(q, k) -> None:
+    """The bf16 backward sums a KV head's group in one cluster of CTAs."""
+    group = q.shape[2] // k.shape[2]
+    if q.dtype == torch.bfloat16 and group > MAX_BWD_GROUP:
+        raise ValueError(f"flash_attention_bwd: a GQA group of {group} q "
+                         f"heads per KV head; the bf16 kernel sums a group "
+                         f"in one thread block cluster, at most "
+                         f"{MAX_BWD_GROUP}")
+
+
 def _forward(q, k, v, causal, window, scale, lse) -> torch.Tensor:
     """One launch of the forward kernel; ``lse`` a (B,Hq,S) fp32 tensor
     to receive each row's log-sum-exp, or None."""
@@ -130,9 +146,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         window: int | None = None,
                         scale: float | None = None) -> tuple:
     """(dq, dk, dv) in q's dtype for the output grad ``dout``, from the
-    forward's ``out`` and its (B,Hq,S) fp32 ``lse``. Three launches (the
-    dq pass with the row sums D; the dk/dv pass, per q head; the sum over
-    each KV head's group), counted once."""
+    forward's ``out`` and its (B,Hq,S) fp32 ``lse``. bf16: two launches
+    (the dq pass, which also writes the row sums D and q*scale; the dk/dv
+    pass in clusters of ``group`` CTAs that sum each KV head's group in
+    distributed shared memory), so a group above 8 raises. fp32: three
+    (dq; dk/dv per q head; the group's sum). Counted once."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
                                        window=window, scale=scale)
@@ -145,24 +163,32 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} "
                          f"{out.dtype}, dout {tuple(dout.shape)} "
                          f"{dout.dtype}, lse {tuple(lse.shape)} {lse.dtype}")
+    _check_group(q, k)
     out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (out, dout)):
+        raise ValueError("flash_attention_bwd: bf16 out and dout need "
+                         "16-byte aligned bases")
     win = check_window(window)
     scale = scale if scale is not None else hd ** -0.5
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    part = torch.empty((2, B, S, Hq, hd), dtype=torch.float32,
-                       device=q.device)
+    dtype = _build.DTYPES[q.dtype]
+    ws_fn = _build.kernel("flash_attention_bwd",
+                          "hydra_flash_attention_bwd_workspace",
+                          [ctypes.c_int] * 5, restype=_LL)
+    ws = torch.empty(ws_fn(B, S, Hq, hd, dtype), dtype=torch.uint8,
+                     device=q.device)
     strides = (_LL * 24)(*(st for t in (q, k, v, out, dout, dq, dk, dv)
                            for st in t.stride()[:3]))
     fn = _build.kernel("flash_attention_bwd", "hydra_flash_attention_bwd",
                        _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             B, S, Hq, Hkv, hd,
-             strides, scale, int(causal), win, _build.DTYPES[q.dtype],
+             ws.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             B, S, Hq, Hkv, hd, strides, scale, int(causal), win, dtype,
              _build.stream(q))
     _build.check(err, "flash_attention_bwd")
     with _count_lock:
@@ -170,7 +196,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0  # backward calls (3 kernels each)
+flash_attention_bwd.launches = 0  # backward calls (2 kernels each, fp32 3)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -180,6 +206,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         _check(q, k, v, "flash_attention", BWD_HEAD_DIMS)
+        _check_group(q, k)
         B, S, Hq, _ = q.shape
         lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
         out = _forward(q, k, v, causal, window, scale, lse)

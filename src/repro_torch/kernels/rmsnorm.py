@@ -15,7 +15,10 @@ pointer, the checks on plain attributes; alignment is the kernel's
 concern (an unaligned or odd-width row takes its scalar variant).
 
 The backward, ``csrc/rmsnorm_bwd.cu`` (``rmsnorm_bwd``), has no TPU
-counterpart: the reference differentiates the jnp oracle. ``RMSNormFn``
+counterpart: the reference differentiates the jnp oracle. It reads dy and
+x once for both gradients: one kernel writes dx and each block's partial
+column sums of dw (a chunk of rows per block, fixed by the shape), a
+second sums the partials in an order fixed by the shape. ``RMSNormFn``
 binds the two as a ``torch.autograd.Function``, which ``kernels/ops``
 takes for CUDA tensors under autograd (the training path).
 
@@ -107,7 +110,7 @@ def rmsnorm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     return dx, dw
 
 
-rmsnorm_bwd.launches = 0  # backward calls (3 kernels each) since the last reset
+rmsnorm_bwd.launches = 0  # backward calls (2 kernels each) since the last reset
 
 
 class RMSNormFn(torch.autograd.Function):

@@ -295,6 +295,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ssd_scan_bwd(x, x, dt, A, b129, b129, chunk=8, saved=())
     with pytest.raises(ValueError, match="saved"):
         ssd_scan_bwd(x, x, dt, A, bc, bc, chunk=8)
+    # bf16 flash backward: a KV head's group is one thread block cluster
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    q16 = torch.zeros((1, 64, 16, 64), dtype=torch.bfloat16, device=cuda)
+    k1 = torch.zeros((1, 64, 1, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="GQA group of 16"):
+        FlashAttentionFn.apply(q16, k1, k1, True, None, None)
 
 
 @pytest.mark.cuda
@@ -352,9 +358,13 @@ FLASH_BWD_CASES = [                           # B, S, Hq, Hkv, hd, causal, windo
     (1, 150, 4, 2, 80, False, 40),            # hd 80, non-causal window
     (2, 100, 8, 1, 16, True, None),           # hd 16 (reduced configs), G 8
     (1, 77, 4, 4, 32, True, 8),               # hd 32, a short window
+    (2, 128, 12, 2, 128, True, None),         # a cluster of 6 (dbrx, nemotron)
+    (1, 1024, 4, 1, 256, False, None),        # hd 256, non-causal
 ]
 RMS_BWD_SHAPES = [(8, 128, 2048), (4, 1, 1024), (4, 1, 1152), (4, 1, 6144),
-                  (2, 3, 8192), (3, 100), (13, 2048), (2, 17, 64)]
+                  (2, 3, 8192), (3, 100), (13, 2048), (2, 17, 64),
+                  (3, 37, 2048),              # 111 rows: a row a block
+                  (5, 113, 2048)]             # 565 rows: chunks of 3, the last 1
 
 
 @pytest.mark.cuda
