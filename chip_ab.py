@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of two checkouts' rmsnorm, ssd_scan, rmsnorm_bwd and
-flash_attention_bwd kernels on one card, in turns, so that a redesign is
-compared with the design before it in the same run.
+"""Device times of two checkouts' rmsnorm, ssd_scan, rmsnorm_bwd,
+ssd_scan_bwd and flash_attention_bwd kernels on one card, in turns, so
+that a redesign is compared with the design before it in the same run.
 
     python3 chip_ab.py OTHER_CHECKOUT
 
@@ -13,7 +13,12 @@ at the decode rows of qwen2.5-3b, zamba2-2.7b and mamba2-780m and at a
 500-token prompt, beside ``F.rms_norm``; ssd_scan (bf16, chunk 256, final
 state) at zamba2-2.7b's and mamba2-780m's 500-token prefill;
 rmsnorm_bwd (bf16 x and dy, fp32 w) at the training rows (8,128,2048),
-beside ``F.rms_norm``'s backward; flash_attention_bwd (bf16, causal) at
+beside ``F.rms_norm``'s backward; ssd_scan_bwd (bf16, chunk 128, the
+column-slice layout, from the forward's saved a_cs and states) at
+zamba2-2.7b's and mamba2-780m's training shapes (8,128,80,64) N 64 and
+(8,128,48,64) N 128, beside autograd of the plain version (no PyTorch
+call computes the SSD backward) and the bound; flash_attention_bwd
+(bf16, causal) at
 qwen2.5-3b's training shape (8,128,16,128) / KV 2, a 500-token prompt,
 granite-moe's hd 64 group 2 (8,128,16,64) / KV 8 and gemma3-1b's hd 256
 window 512 (1,1024,4,256) / KV 1, beside SDPA's backward (autograd over a
@@ -72,17 +77,22 @@ def worker(checkout: str) -> dict:
 
 
 def backward_times(cs, gen) -> dict:
-    """rmsnorm_bwd and flash_attention_bwd of the checkout on the path
-    first, and their library calls' backward, at the training shapes."""
+    """rmsnorm_bwd, ssd_scan_bwd and flash_attention_bwd of the checkout on
+    the path first, and their library calls' backward (ssd_scan_bwd: the
+    plain version's, as no library call computes it), at the training
+    shapes."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (_forward,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.kernels.ssd_scan import _forward as ssd_forward
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
 
     bf16, f32 = torch.bfloat16, torch.float32
-    out = {"rmsnorm_bwd": {}, "flash_attention_bwd": {}}
+    out = {"rmsnorm_bwd": {}, "ssd_scan_bwd": {}, "flash_attention_bwd": {}}
     D = cs.QWEN["D"]
     shape = (cs.TRAIN_B, cs.TRAIN_S, D)
     x, dy = cs.randn(shape, bf16, gen), cs.randn(shape, bf16, gen)
@@ -95,6 +105,24 @@ def backward_times(cs, gen) -> dict:
     out["rmsnorm_bwd"][str(shape)] = dict(
         device_ms=cs.device_ms(kern), library_device_ms=cs.device_ms(lib),
         events_ms=cs.cuda_ms(kern, iters=100))
+    B, S = cs.TRAIN_B, cs.TRAIN_S
+    for name, m in (("zamba2", cs.ZAMBA), ("mamba2", cs.MAMBA)):
+        H, P, N = m["H"], m["P"], m["N"]
+        x, dt, A, Bm, Cm = cs.ssd_inputs(gen, B, S, H, P, N, bf16,
+                                         strided=True)
+        dy = cs.randn((B, S, H, P), bf16, gen)
+        saved = ssd_forward(x, dt, A, Bm, Cm, S, None, False, save=True)[2]
+        kern = lambda: ssd_scan_bwd(dy, x, dt, A, Bm, Cm, chunk=S,
+                                    saved=saved)
+        ins = [t.detach().clone().requires_grad_()
+               for t in (x, dt, A, Bm, Cm)]
+        yp = ref.ssd_scan_ref(*ins, chunk=S)
+        plain = lambda: torch.autograd.grad(yp, ins, dy, retain_graph=True)
+        out["ssd_scan_bwd"][name] = dict(
+            shape=[B, S, H, P], N=N, chunk=S,
+            bound_ms=cs.ssd_bwd_bound(B, S, H, P, N, S, bf16)[0],
+            device_ms=cs.device_ms(kern), plain_device_ms=cs.device_ms(plain),
+            events_ms=cs.cuda_ms(kern, iters=50))
     H, K, hd = cs.QWEN["Hq"], cs.QWEN["Hkv"], cs.QWEN["hd"]
     for label, (B, S, hq, hkv, d, win) in {
             "qwen training": (cs.TRAIN_B, cs.TRAIN_S, H, K, hd, None),

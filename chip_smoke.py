@@ -47,8 +47,11 @@ architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
    (8,128,16,128) / KV 2, a 500-token prompt, granite-moe's hd 64 group
    2, gemma3's hd 256 window 512 (S 1024), a ragged S, a cluster of 6
    and fp32; ``ssd_scan_bwd`` (dx, ddt, dA, dB, dC, d
-   init_state) at zamba2's and mamba2's training shapes (8 x 128, chunk
-   128, the column-slice layout), a ragged two-chunk 500-token prompt
+   init_state; bf16 on mma.sync, a fused pass per (row, chunk, head) in
+   clusters of heads, U_c and the recurrence only where the state is
+   not zero; fp32 the scalar kernels) at zamba2's and mamba2's training
+   shapes (8 x 128, chunk 128, the column-slice layout), a ragged
+   two-chunk 500-token prompt
    with an init state and a final-state cotangent, S < 8, S = 257, the
    served column slices and P 16, in fp32 and bf16, each gradient
    relative to its largest |g| (dA to the sum of its terms' absolute
@@ -917,7 +920,10 @@ def phase_backward(gen) -> dict:
             (1, 257, 4, 64, 64, SSD_CHUNK, False, False, "S = 257"),
             (1, 500, ZAMBA["H"], ZAMBA["P"], ZAMBA["N"], SSD_CHUNK, False,
              True, "zamba2 column slices"),
-            (2, 64, 4, 16, 16, 16, False, False, "P 16")]:
+            (2, 64, 4, 16, 16, 16, False, False, "P 16"),
+            (1, 6000, 2, 128, 128, 6000, True, False,
+             "one chunk of 6000, init + final cotangent, past the fused "
+             "pass's shared memory")]:
         for dt in (f32, bf16):
             x, dtv, A, Bm, Cm = ssd_inputs(gen, B, S, H, P, N, dt, strided)
             s0 = randn((B, H, P, N), f32, gen) if init else None
@@ -979,21 +985,33 @@ def compare_ssd_grads(name: str, got, want, x, dt, A, dtype) -> float:
     return err
 
 
-def ssd_bwd_bound(B, S, H, P, N, chunk, dtype) -> tuple:
+def ssd_bwd_bound(B, S, H, P, N, chunk, dtype, init=False,
+                  dfinal=False) -> tuple:
     """Least time for one backward: x, dy, dt, A, B, C and the saved a_cs
-    and chunk states read once, dx, ddt, dA, dB, dC written once; the
-    products counted once (per head and chunk: dW, d dtx, dC and dB over
-    the visible (l, s) pairs, the four state products; C B^T once per
-    chunk), on the rows this S really has."""
+    read once, dx, ddt, dA, dB, dC written once; the products counted once
+    (per head and chunk: dW, d dtx, dC and dB over the visible (l, s)
+    pairs; C B^T once per chunk), on the rows this S really has. The
+    state terms count only where the function needs them: the saved state
+    entering chunk c and its product into dC where it is not zero (c > 0,
+    or an init state); the cotangent G leaving chunk c and its two
+    products where it is not zero (c before the last, or ``dfinal``); U_c
+    for the chunks whose G it feeds (c > 0) and, with an init state, for
+    d init_state; ``dfinal`` read and d init_state written when given."""
     xb = torch.tensor([], dtype=dtype).element_size()
     nc = -(-S // chunk)
+    state = 4 * B * H * P * N          # bytes of one (B, H, P, N) fp32
+    entering = nc - 1 + init           # saved states that are not zero
     nbytes = (3 * B * S * H * P * xb + 2 * B * S * H * 4 + 2 * H * 4
               + 4 * B * S * N * xb + B * nc * H * chunk * 4
-              + B * nc * H * P * N * 4)
-    rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
-    pairs = sum(r * (r + 1) // 2 for r in rows)
-    flops = 2.0 * (B * H * pairs * (2 * P + 2 * N) + B * pairs * N
-                   + 4 * B * H * S * P * N)
+              + state * (entering + dfinal + init))
+    flops = 0.0
+    for c in range(nc):
+        r = min(chunk, S - c * chunk)
+        pairs = r * (r + 1) // 2
+        # the entering state into dC and U_c; G into d dtx and dB
+        products = 2 * (c > 0 or init) + 2 * (c + 1 < nc or dfinal)
+        flops += 2.0 * (B * H * pairs * (2 * P + 2 * N) + B * pairs * N
+                        + products * B * H * r * P * N)
     return bound(nbytes, flops, dtype)
 
 
@@ -1002,7 +1020,11 @@ def time_ssd_bwd(gen, H, P, N, what: str) -> dict:
     column-slice layout) against autograd of the plain version, then the
     kernel's and the plain version's backward times (backward only: the
     kernel from the forward's saved a_cs and states, autograd over a kept
-    graph) beside the bound. No PyTorch call computes the SSD backward."""
+    graph) beside the bound, the device time of each kernel the call ran
+    (one chunk, no init state or final cotangent: the fused mma.sync pass
+    and the reduction, and neither U_c nor the recurrence, which fails
+    the phase if the profile shows them) and their CTAs, shared memory
+    and registers. No PyTorch call computes the SSD backward."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import (BwdPlan, _forward, scan_plan,
                                               ssd_scan_bwd)
@@ -1024,14 +1046,24 @@ def time_ssd_bwd(gen, H, P, N, what: str) -> dict:
                                                   retain_graph=True),
                 None, iters=20)
     b_ms, b_by = ssd_bwd_bound(B, S, H, P, N, chunk, bf16)
-    nb = f"Li{max(P, 16)}ELi{64 if N <= 64 else 128}E"
+    nb = f"Li{max(P, 16)}ELi{64 if N <= 64 else 128}ELb0E"
+    bplan = BwdPlan(scan_plan(S, chunk, P, N), tc=True)
+    by_pass = device_ms_by_kernel(
+        kern, ("bwd_mma_kernel", "bwd_reduce_kernel", "bwd_mma_state_kernel",
+               "bwd_grec_kernel"))
+    if by_pass["bwd_mma_state_kernel"] or by_pass["bwd_grec_kernel"] or \
+            not (by_pass["bwd_mma_kernel"] and by_pass["bwd_reduce_kernel"]):
+        raise AssertionError(f"ssd_bwd {what}: one chunk without an init "
+                             f"state or final cotangent ran {by_pass} (ms); "
+                             f"only the fused pass and the reduction may")
     return dict(shape=[B, S, H, P], N=N, chunk=chunk, max_abs_err=err,
-                ctas=BwdPlan(scan_plan(S, chunk, P, N)).ctas(B, S, H, P, N),
-                ptxas={k: ptxas_usage("ssd_scan_bwd", f"bwd_{k}_kernel",
-                                      "13__nv_bfloat16", nb)
-                       for k in ("dstate", "s", "l")},
-                device_ms_by_pass=device_ms_by_kernel(
-                    kern, KERNEL_CLASSES["ssd_scan_bwd"]),
+                ctas=bplan.ctas(B, S, H, P, N), smem=bplan.smem(P, N),
+                ptxas=dict(mma=ptxas_usage("ssd_scan_bwd", "bwd_mma_kernel",
+                                           nb),
+                           reduce=ptxas_usage("ssd_scan_bwd",
+                                              "bwd_reduce_kernel",
+                                              "13__nv_bfloat16")),
+                device_ms_by_pass=by_pass,
                 library="none: no PyTorch call computes the SSD backward",
                 **t, bound_ms=b_ms, bound_by=b_by)
 
@@ -1723,7 +1755,8 @@ KERNEL_CLASSES = {   # profiler kernel-name keys of each hand-written kernel
                  "ssd_out_kernel"),
     "rmsnorm_bwd": ("rmsnorm_bwd_", "rmsnorm_dw_"),
     "flash_attention_bwd": ("flash_bwd_",),
-    "ssd_scan_bwd": ("bwd_cb_kernel", "bwd_dstate_kernel", "bwd_grec_kernel",
+    "ssd_scan_bwd": ("bwd_mma_kernel", "bwd_mma_state_kernel",
+                     "bwd_cb_kernel", "bwd_dstate_kernel", "bwd_grec_kernel",
                      "bwd_s_kernel", "bwd_l_kernel", "bwd_combine_kernel",
                      "bwd_reduce_kernel"),
 }

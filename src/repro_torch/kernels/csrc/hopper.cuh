@@ -91,6 +91,20 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" :::
                    "memory");
 }
+// The two halves of cluster_sync, so that work goes on between them: every
+// thread alternates arrive and wait; the wait returns once every thread of
+// the cluster has made the matching arrive.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// An arrive that orders nothing: for a thread whose reads of other CTAs'
+// shared memory have returned, to let them reuse it.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
 // The shared-memory address `addr` of this CTA as the same offset in CTA
 // `rank` of the cluster.
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {

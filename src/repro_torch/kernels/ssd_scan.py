@@ -28,9 +28,12 @@ Training: ``SsdScanFn`` (a ``torch.autograd.Function``, taken by
 a_cs and the states entering each chunk (the bf16 kernels' workspaces;
 the fp32 kernel writes them on request) and differentiates with the
 hand-written backward ``csrc/ssd_scan_bwd.cu`` (``ssd_scan_bwd``: dx,
-ddt, dA, dB, dC and d init_state, seven kernels counted as one call;
-``BwdPlan`` says how they cut it), which has no TPU counterpart: the
-reference differentiates the jnp oracle.
+ddt, dA, dB, dC and d init_state, counted as one call; ``BwdPlan`` says
+which kernels run and how they cut it: bf16 a fused pass per (row,
+chunk, head) on the tensor cores in clusters of heads, with U_c and the
+recurrence only where the state is not zero; fp32 seven scalar
+kernels), which has no TPU counterpart: the reference differentiates
+the jnp oracle.
 
 The plain versions are ``kernels/ref.py:ssd_scan_ref`` and
 ``ssd_scan_bwd_ref``; the wrappers take them only for tensors that lie on
@@ -58,10 +61,11 @@ STATE_THREADS = 256                # threads of a pass-B CTA, 4 elements each
 _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [_LL] * 13
              + [ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [_LL] * 13
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7 + [_LL] * 13
                  + [ctypes.c_int, ctypes.c_void_p])
 BWD_MAX_N = 128                    # the backward's widest state (N) bucket
-BWD_THREADS = 256                  # threads of a tiled backward CTA
+BWD_THREADS = 256                  # threads of a backward CTA
+BWD_CLUSTER = 8                    # most heads per cluster (the portable size)
 _count_lock = threading.Lock()
 
 
@@ -131,60 +135,152 @@ class ScanPlan:
         return dict(chunk=max(cb, state), out=out)
 
 
+def _bwd_buckets(P: int, N: int) -> tuple:
+    """The backward's P and N buckets: P padded to at least 16, N to 64 or
+    128 (its kernels are instantiated per bucket)."""
+    return max(P, 16), 64 if N <= 64 else 128
+
+
 def bwd_smem_bytes(P: int, N: int, chunk: int) -> dict:
-    """Dynamic shared memory of the backward's tiled kernels, in bytes
-    (csrc/ssd_scan_bwd.cu's bwd_smem): P padded to at least 16, N to 64 or
-    128, fp32 tiles with odd row pitches; the s and l kernels hold the
-    (P, N) state and the tile it multiplies (B, C) in a union with the
-    operands of their loop over l or s tiles."""
-    pp, np_, t, tp = max(P, 16) + 1, (64 if N <= 64 else 128) + 1, TILE, \
-        TILE + 1
+    """Dynamic shared memory of the backward's kernels, in bytes
+    (csrc/ssd_scan_bwd.cu's bwd_smem). fp32 (``cb``, ``dstate``, ``s``,
+    ``l``, ``combine``): fp32 tiles with odd row pitches; the s and l
+    kernels hold the (P, N) state and the tile it multiplies (B, C) in a
+    union with the operands of their loop over l or s tiles; combine an
+    fp64 value per position. bf16 (``mma``, ``mma_long``, ``mma_state``):
+    bf16 tiles with pitches padded by 8; the fused pass holds x and B of
+    an s tile, dy and C of an l tile, dCB and M as hi + lo (their union:
+    the fp32 staging tile of the cluster's sum), six per-position fp32
+    arrays over the chunk's 64-row tiles (``mma_long``: those six in
+    device memory, for a chunk too long for them), six of 64 for the
+    partial sums and 24 fp64 partials of the reverse cumsum."""
+    pb, nb = _bwd_buckets(P, N)
+    pp, np_, t, tp = pb + 1, nb + 1, TILE, TILE + 1
     g = (pp - 1) * np_
     s_tiles = t * np_ + t * pp + t * tp + 16 * t
     l_tiles = t * np_ + t * pp + t * tp
+    L, xp, bp = _up(chunk, TILE), pb + 8, nb + 8
+    mma_long = (2 * (2 * t * xp + 2 * t * bp + 4 * t * (t + 8))
+                + 4 * 6 * t + 8 * 3 * (BWD_THREADS // 32))
     return dict(cb=4 * 2 * t * np_,
                 dstate=4 * (t * pp + t * np_ + chunk),
                 s=4 * (t * pp + chunk + 3 * t + max(g + t * np_, s_tiles)),
-                l=4 * (t * pp + chunk + max(g + t * np_, l_tiles)))
+                l=4 * (t * pp + chunk + max(g + t * np_, l_tiles)),
+                combine=8 * chunk,
+                mma=mma_long + 4 * 6 * L, mma_long=mma_long,
+                mma_state=2 * (2 * t * xp + t * bp))
+
+
+def bwd_cluster(H: int) -> int:
+    """Heads per cluster of the bf16 fused pass: the largest divisor of H
+    up to 8, so the clusters tile the heads."""
+    return max(d for d in range(1, BWD_CLUSTER + 1) if H % d == 0)
 
 
 @dataclass(frozen=True)
 class BwdPlan:
-    """How the backward cuts the scan of ``plan``: its CTAs per kernel and
-    its fp32 workspaces (besides the forward's saved a_cs and states): C Bᵀ
-    tiles (B, chunks, cb_tiles, 64, 64); U_c, then G_{c+1} (B, chunks, H,
-    P, N); the per-head partial dB and dC (B, H, S, N); the per-position
-    row part, column part, r and <x, d dtx> (4, B, chunks, H, chunk); the
-    partial dA (B, chunks, H) in fp64, as two floats each."""
+    """What the backward of ``plan`` runs and how it cuts it, for one route:
+    ``tc`` the bf16 tensor-core kernels, else the fp32 scalar ones; ``init``
+    and ``dfinal`` whether an init state and a final-state cotangent were
+    given.
+
+    fp32 (seven kernels): C Bᵀ tiles, U_c, the recurrence, s-side and
+    l-side tile passes, combine, reduce; workspaces: C Bᵀ tiles (B, chunks,
+    cb_tiles, 64, 64); U_c, then G_{c+1} (B, chunks, H, P, N); the per-head
+    partial dB and dC (B, H, S, N); the per-position row part, column part,
+    r and <x, d dtx> (4, B, chunks, H, chunk); the partial dA (B, chunks,
+    H) in fp64, as two floats each.
+
+    bf16: U_c (``mma_state``) only where G can be nonzero or d init_state is
+    wanted (chunks after the first, chunk 0 only with an init state); the
+    recurrence (``grec``) only with more than one chunk, an init state or a
+    final-state cotangent; the fused pass (``mma``), one CTA per (row,
+    chunk, head) in clusters of ``bwd_cluster(H)`` heads; the reduction.
+    Workspaces: G (B, chunks, H, P, N) where the recurrence runs; the
+    clusters' partial dB and dC (B, H / cluster, S, N rounded up to 4);
+    the fused pass's six per-position arrays (B, chunks, H, 6, l_tiles
+    64) only where they do not fit its shared memory (``long_chunk``);
+    parked dC tiles (B, chunks, H, l_tiles - 1, 64 NB), NB the N bucket,
+    only where a chunk has three or more 64-row tiles; the partial dA."""
     plan: ScanPlan
+    tc: bool = False
+    init: bool = False
+    dfinal: bool = False
+
+    def runs(self) -> tuple:
+        """(U_c runs for chunks [c_lo, chunks), the recurrence runs)."""
+        p = self.plan
+        c_lo = 0 if self.init else 1
+        return c_lo, p.chunks > 1 or self.init or self.dfinal
+
+    def long_chunk(self, P: int, N: int) -> bool:
+        """Whether the bf16 fused pass keeps its six per-position arrays in
+        device memory: they do not fit beside its tiles."""
+        return self.tc and \
+            bwd_smem_bytes(P, N, self.plan.chunk)["mma"] > SMEM_LIMIT
 
     def ctas(self, B: int, S: int, H: int, P: int, N: int) -> dict:
+        """CTAs per kernel that runs."""
         p = self.plan
         nch = p.chunks * H
-        return dict(cb=p.cb_tiles * p.chunks * B, dstate=nch * B,
-                    grec=-(-P * N // BWD_THREADS) * H * B,
-                    s=p.l_tiles * nch * B, l=p.l_tiles * nch * B,
-                    combine=nch * B,
-                    reduce=-(-B * S * N // BWD_THREADS)
-                    + -(-H // BWD_THREADS))
+        reduce = -(-B * S * N // BWD_THREADS) + -(-H // BWD_THREADS)
+        grec = -(-P * N // BWD_THREADS) * H * B
+        if not self.tc:
+            return dict(cb=p.cb_tiles * p.chunks * B, dstate=nch * B,
+                        grec=grec, s=p.l_tiles * nch * B,
+                        l=p.l_tiles * nch * B, combine=nch * B,
+                        reduce=reduce)
+        c_lo, rec = self.runs()
+        out = {}
+        if p.chunks > c_lo:
+            out["mma_state"] = (p.chunks - c_lo) * H * B
+        if rec:
+            out["grec"] = grec
+        out["mma"] = nch * B
+        out["reduce"] = reduce
+        return out
 
     def workspace_shapes(self, B: int, S: int, H: int, P: int,
                          N: int) -> dict:
         p = self.plan
-        return dict(cb=(B, p.chunks, p.cb_tiles, TILE, TILE),
-                    g=(B, p.chunks, H, P, N), dbp=(B, H, S, N),
-                    dcp=(B, H, S, N), pos=(4, B, p.chunks, H, p.chunk),
-                    dap=(B, p.chunks, H, 2))
+        if not self.tc:
+            return dict(cb=(B, p.chunks, p.cb_tiles, TILE, TILE),
+                        g=(B, p.chunks, H, P, N), dbp=(B, H, S, N),
+                        dcp=(B, H, S, N), pos=(4, B, p.chunks, H, p.chunk),
+                        dap=(B, p.chunks, H, 2))
+        parts, nw = H // bwd_cluster(H), _up(N, 4)
+        out = {}
+        if self.runs()[1]:
+            out["g"] = (B, p.chunks, H, P, N)
+        out.update(dbp=(B, parts, S, nw), dcp=(B, parts, S, nw))
+        if self.long_chunk(P, N):
+            out["pos"] = (B, p.chunks, H, 6, p.l_tiles * TILE)
+        if p.l_tiles >= 3:
+            out["pend"] = (B, p.chunks, H, p.l_tiles - 1,
+                           TILE * _bwd_buckets(P, N)[1])
+        out["dap"] = (B, p.chunks, H, 2)
+        return out
 
     def workspace_offsets(self, B: int, S: int, H: int, P: int,
                           N: int) -> tuple:
-        """(offsets of the workspaces in one fp32 buffer, each aligned to
-        64 floats; the buffer's length in floats)."""
+        """(offsets of the workspaces, in ``workspace_shapes``' order, in
+        one fp32 buffer, each aligned to 64 floats; the buffer's length in
+        floats)."""
         offs, end = [], 0
         for shape in self.workspace_shapes(B, S, H, P, N).values():
             offs.append(end)
             end += _up(math.prod(shape), 64)
         return tuple(offs), end
+
+    def smem(self, P: int, N: int) -> dict:
+        """Dynamic shared memory of this route's kernels, in bytes (bf16:
+        ``mma`` as the fused pass launches, with ``long_chunk``'s
+        layout)."""
+        m = bwd_smem_bytes(P, N, self.plan.chunk)
+        if self.tc:
+            mma = "mma_long" if self.long_chunk(P, N) else "mma"
+            return dict(mma=m[mma], mma_state=m["mma_state"])
+        return {k: m[k] for k in ("cb", "dstate", "s", "l", "combine")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -299,7 +395,9 @@ def ssd_scan_bwd(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     (x's dtype) and, optionally, the final state's ``dfinal`` (B,H,P,N):
     dx, dB, dC in x's dtype, the rest fp32. ``saved`` is the forward's
     (a_cs, states) (``_forward(..., save=True)``), required for CUDA
-    tensors. One call of seven kernels counts one launch."""
+    tensors. One call counts one launch, however many kernels it runs
+    (``BwdPlan.ctas``): bf16 two with one chunk and neither an init state
+    nor ``dfinal`` (the training shapes), up to four; fp32 seven."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_ref(dy, x, dt, A, Bm, Cm, chunk=chunk,
                                 init_state=init_state, dfinal=dfinal)
@@ -309,7 +407,9 @@ def ssd_scan_bwd(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     if N > BWD_MAX_N:
         raise ValueError(f"ssd_scan_bwd: N={N} over {BWD_MAX_N}")
     plan = scan_plan(S, chunk, P, N)
-    need = max(bwd_smem_bytes(P, N, plan.chunk).values())
+    bplan = BwdPlan(plan, tc=x.dtype == torch.bfloat16,
+                    init=init_state is not None, dfinal=dfinal is not None)
+    need = max(bplan.smem(P, N).values())
     if need > SMEM_LIMIT:
         raise ValueError(f"ssd_scan_bwd: P={P}, N={N}, chunk={chunk} need "
                          f"{need} B of shared memory, over {SMEM_LIMIT}")
@@ -335,9 +435,10 @@ def ssd_scan_bwd(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
         raise ValueError(f"ssd_scan_bwd: saved a_cs {tuple(acs.shape)} and "
                          f"states {tuple(states.shape)} do not match the "
                          f"plan's {shapes['acs']}, {shapes['state']}")
-    bplan = BwdPlan(plan)
     offs, floats = bplan.workspace_offsets(B, S, H, P, N)
     buf = torch.empty(floats, dtype=torch.float32, device=x.device)
+    ws = dict(zip(bplan.workspace_shapes(B, S, H, P, N),
+                  (buf.data_ptr() + 4 * o for o in offs)))
     dx = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     ddt = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
     dA = torch.empty((H,), dtype=torch.float32, device=x.device)
@@ -349,10 +450,11 @@ def ssd_scan_bwd(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     fn = _build.kernel("ssd_scan_bwd", "hydra_ssd_scan_bwd", _BWD_ARGTYPES)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), dy.data_ptr(), ptr(dfinal), acs.data_ptr(),
-             states.data_ptr(), *(buf.data_ptr() + 4 * o for o in offs),
+             states.data_ptr(), *(ws.get(k) for k in (
+                 "cb", "g", "dbp", "dcp", "pos", "pend", "dap")),
              dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
              dC.data_ptr(), ptr(dinit), B, S, H, P, N, plan.chunk,
-             *x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+             bwd_cluster(H), *x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
              *Cm.stride()[:2], *dy.stride()[:3], _build.DTYPES[x.dtype],
              _build.stream(x))
     _build.check(err, "ssd_scan_bwd")
@@ -361,7 +463,7 @@ def ssd_scan_bwd(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     return dx, ddt, dA, dB, dC, dinit
 
 
-ssd_scan_bwd.launches = 0  # backward calls (7 kernels each)
+ssd_scan_bwd.launches = 0  # backward calls (2-4 kernels bf16, 7 fp32)
 
 
 class SsdScanFn(torch.autograd.Function):

@@ -478,7 +478,8 @@ def test_kernels_without_a_backward_raise_under_autograd(cuda):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,S,H,P,N,chunk,init", SSD_CASES + [
     (8, 128, 80, 64, 64, 128, False),         # zamba2-2.7b training
-    (8, 128, 48, 64, 128, 128, False)])       # mamba2-780m training
+    (8, 128, 48, 64, 128, 128, False),        # mamba2-780m training
+    (1, 6000, 2, 128, 128, 6000, True)])      # past the fused pass's smem
 def test_ssd_scan_backward_kernel_matches_autograd_of_plain(
         cuda, B, S, H, P, N, chunk, init, dtype):
     """SsdScanFn (the forward keeps a_cs and the chunk states, the

@@ -1,5 +1,7 @@
-"""The SSD scan's backward kernels (``kernels/csrc/ssd_scan_bwd.cu``),
-emulated on the CPU on their own tiling.
+"""The SSD scan's fp32 backward kernels (``kernels/csrc/ssd_scan_bwd.cu``,
+the scalar route), emulated on the CPU on their own tiling, and the
+backward's plan (``BwdPlan``) for both routes; the bf16 tensor-core route
+is emulated in ``tests/test_torch_ssd_bwd_tc.py``.
 
 The CUDA kernels run only on the card, so this file replays their passes
 in torch, with ``scan_plan``'s chunks and 64 x 64 tiles, the same masks
@@ -32,11 +34,12 @@ The emulation is held against ``torch.autograd`` of the scan's definition
 (a float64 recurrence, 1e-9), against ``jax.vjp`` of
 the JAX oracle ``repro.kernels.ref.ssd_scan_ref`` in fp32 (each gradient
 within 2e-5 of its largest |g|, dA of the sum of its terms' absolute
-values (``dA_scale``), d init_state 1e-3 as the forward's state is held),
-and with bf16 x, B, C and dy against the JAX oracle on the same
-bf16 inputs (5e-2). Each side's tile loops must visit every (l, s) pair
-on or below the diagonal exactly once. Inputs are drawn with numpy from a
-seed.
+values (``dA_scale``), d init_state 1e-3 as the forward's state is held).
+Each side's tile loops must visit every (l, s) pair on or below the
+diagonal exactly once. Three of these cases also run the bf16 route's
+emulation against the JAX oracle on the same bf16 inputs (5e-2). The
+plan's shared memory is held to every chunk the forward takes. Inputs
+are drawn with numpy from a seed.
 """
 import jax
 import jax.numpy as jnp
@@ -48,8 +51,9 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import (SMEM_LIMIT, TILE, BwdPlan,
-                                          bwd_smem_bytes, scan_plan,
-                                          ssd_scan_bwd)
+                                          bwd_cluster, bwd_smem_bytes,
+                                          scan_plan, ssd_scan_bwd)
+from repro_torch.kernels.ssd_scan import smem_bytes as fwd_smem_bytes
 
 CASES = [  # B, S, H, P, N, chunk, init, final-state cotangent
     (2, 100, 3, 16, 16, 32, True, True),      # ragged S, 4 chunks, both
@@ -415,10 +419,13 @@ def test_bwd_passes_match_jax_vjp_fp32(case):
 @pytest.mark.parametrize("case", [CASES[0], CASES[2], CASES[6]],
                          ids=[CASE_IDS[0], CASE_IDS[2], CASE_IDS[6]])
 def test_bwd_passes_bf16_match_jax_vjp(case):
-    """The bf16 path: x, B, C and dy bf16 values, the forward's chunk
-    states split into bf16 hi + lo, the backward in fp32 and dx, dB, dC
+    """The bf16 route (the tensor-core kernels, emulated by
+    ``tests/test_torch_ssd_bwd_tc.py``) on these cases: x, B, C and dy
+    bf16 values, every fp32 operand split into bf16 hi + lo, dx, dB, dC
     rounded to bf16, against the JAX oracle on the same bf16 inputs."""
-    got, _, _, arrs = emulate(case, np.float32, True)
+    from test_torch_ssd_bwd_tc import emulate as tc_emulate
+
+    got, _, _, _, arrs = tc_emulate(case, np.float32, True)
     for k in ("dx", "dB", "dC"):
         got[k] = got[k].to(torch.bfloat16).float()
     want = jax_vjp(arrs, case[5], "bfloat16")
@@ -431,11 +438,58 @@ def test_bwd_passes_bf16_match_jax_vjp(case):
 @pytest.mark.parametrize("N", [16, 20, 64, 128])
 @pytest.mark.parametrize("chunk", [8, 128, 256])
 def test_bwd_smem_fits_the_model_shapes(P, N, chunk):
-    """The backward's three tiled kernels fit a block's shared memory at
-    every head dim the forward takes and N up to 128."""
+    """The backward's kernels fit a block's shared memory at every head
+    dim the forward takes and N up to 128: the fp32 route's five and the
+    bf16 route's two (the fused mma.sync pass, with its per-position
+    arrays in shared memory at these chunks, and U_c); the fused pass
+    leaves room for two CTAs a SM at both training shapes."""
     smem = bwd_smem_bytes(P, N, chunk)
-    assert set(smem) == {"cb", "dstate", "s", "l"}
+    assert set(smem) == {"cb", "dstate", "s", "l", "combine", "mma",
+                         "mma_long", "mma_state"}
     assert max(smem.values()) <= SMEM_LIMIT
+    plan = scan_plan(chunk, chunk, P, N)
+    assert not BwdPlan(plan, tc=True).long_chunk(P, N)
+    for tc, keys in ((False, {"cb", "dstate", "s", "l", "combine"}),
+                     (True, {"mma", "mma_state"})):
+        assert BwdPlan(plan, tc=tc).smem(P, N) == {k: smem[k] for k in keys}
+    if (P, chunk) == (64, 128) and N in (64, 128):
+        # two CTAs and their 1 KB reserves in the SM's 228 KB
+        assert 2 * (smem["mma"] + 1024) <= 228 * 1024
+
+
+def forward_chunk_limit(P: int, N: int, bf16: bool) -> int:
+    """The longest chunk the forward's kernels take at (P, N) (one chunk
+    of S = chunk), by bisection on their shared memory."""
+    def fits(chunk):
+        plan = scan_plan(chunk, chunk, P, N)
+        need = max(plan.smem().values()) if bf16 else \
+            fwd_smem_bytes(P, N, plan.chunk)
+        return need <= SMEM_LIMIT
+    lo, hi = 1, 1 << 17
+    assert not fits(hi)
+    while lo + 1 < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("N", [16, 64, 128])
+@pytest.mark.parametrize("P", [8, 16, 32, 64, 128])
+def test_bwd_takes_every_chunk_the_forward_takes(P, N, bf16):
+    """At the longest chunk the forward takes, the backward's kernels fit
+    shared memory too, so a training call that passes the forward does
+    not raise in the backward. The bf16 fused pass moves its
+    per-position arrays to a workspace past its own limit (at P 128 / N
+    128 a chunk of 5,120, against the forward's 13,824)."""
+    chunk = forward_chunk_limit(P, N, bf16)
+    assert chunk >= 6000
+    bplan = BwdPlan(scan_plan(chunk, chunk, P, N), tc=bf16)
+    assert max(bplan.smem(P, N).values()) <= SMEM_LIMIT
+    if bf16 and (P, N) == (128, 128):
+        assert bplan.long_chunk(P, N)
+        assert bwd_smem_bytes(P, N, 5120)["mma"] <= SMEM_LIMIT < \
+            bwd_smem_bytes(P, N, 5121)["mma"]
 
 
 @pytest.mark.parametrize("case", [CASES[0], CASES[1], CASES[5]],
@@ -472,23 +526,57 @@ def test_plain_backward_matches_jax_vjp(case):
                                            (128, 128, 48, 64, 128),
                                            (512, 256, 80, 64, 64),
                                            (500, 256, 48, 64, 128),
-                                           (33, 8, 2, 16, 64)])
+                                           (33, 8, 2, 16, 64),
+                                           (6000, 6000, 2, 128, 128)])
 def test_bwd_plan_ctas_and_workspaces(S, chunk, H, P, N):
-    """The backward's CTAs per kernel and its workspaces: at zamba2's
+    """The backward's CTAs per kernel and its workspaces. fp32: at zamba2's
     training shape (8 x 128, 80 heads, one chunk of two 64-row tiles) the
-    s and l kernels run 1,280 CTAs each; the workspaces are disjoint and
-    64-float aligned."""
+    s and l kernels run 1,280 CTAs each. bf16: one fused CTA per (row,
+    chunk, head); with one chunk and neither an init state nor a final
+    cotangent no U_c or recurrence CTA runs (G is zero) and no G workspace
+    exists; U_0 runs only with an init state. The heads' dB and dC sum in
+    clusters of up to 8, so the partials left in device memory are
+    (B, H / cluster, S, N): an eighth of the fp32 route's per-head pair at
+    both training shapes. The fused pass's per-position arrays get a
+    workspace only past its shared memory (one chunk of 6,000 at P 128 /
+    N 128). Every workspace is disjoint and 64-float aligned."""
     B = 8
-    bplan = BwdPlan(scan_plan(S, chunk, P, N))
-    p = bplan.plan
-    ctas = bplan.ctas(B, S, H, P, N)
-    assert ctas["s"] == ctas["l"] == p.l_tiles * p.chunks * H * B
-    assert ctas["combine"] == ctas["dstate"] == p.chunks * H * B
-    if (S, H) == (128, 80):
-        assert (p.chunks, p.l_tiles, ctas["s"]) == (1, 2, 1280)
-    offs, floats = bplan.workspace_offsets(B, S, H, P, N)
-    sizes = [int(np.prod(s)) for s in
-             bplan.workspace_shapes(B, S, H, P, N).values()]
-    assert all(o % 64 == 0 for o in offs)
-    ends = [o + n for o, n in zip(offs, sizes)]
-    assert all(e <= o for e, o in zip(ends, offs[1:])) and ends[-1] <= floats
+    plan = scan_plan(S, chunk, P, N)
+    p = plan
+    for init, dfin in ((False, False), (True, False), (False, True),
+                       (True, True)):
+        for tc in (False, True):
+            bplan = BwdPlan(plan, tc=tc, init=init, dfinal=dfin)
+            ctas = bplan.ctas(B, S, H, P, N)
+            shapes = bplan.workspace_shapes(B, S, H, P, N)
+            offs, floats = bplan.workspace_offsets(B, S, H, P, N)
+            sizes = [int(np.prod(s)) for s in shapes.values()]
+            assert all(o % 64 == 0 for o in offs)
+            ends = [o + n for o, n in zip(offs, sizes)]
+            assert all(e <= o for e, o in zip(ends, offs[1:]))
+            assert ends[-1] <= floats
+            if not tc:
+                assert ctas["s"] == ctas["l"] == p.l_tiles * p.chunks * H * B
+                assert ctas["combine"] == ctas["dstate"] == p.chunks * H * B
+                if (S, H) == (128, 80):
+                    assert (p.chunks, p.l_tiles, ctas["s"]) == (1, 2, 1280)
+                per_head = 2 * int(np.prod(shapes["dbp"]))
+                continue
+            assert ctas["mma"] == p.chunks * H * B
+            zero_state = p.chunks == 1 and not (init or dfin)
+            assert ("grec" in ctas) == ("g" in shapes) == (not zero_state)
+            assert ctas.get("mma_state", 0) == \
+                (p.chunks - (0 if init else 1)) * H * B
+            if zero_state:
+                assert list(ctas) == ["mma", "reduce"]
+            hc = bwd_cluster(H)
+            assert shapes["dbp"] == shapes["dcp"] == \
+                (B, H // hc, S, -(-N // 4) * 4)
+            assert ("pend" in shapes) == (p.l_tiles >= 3)
+            assert ("pos" in shapes) == bplan.long_chunk(P, N) == (S == 6000)
+            if S == 6000:
+                assert shapes["pos"] == (B, 1, H, 6, 94 * TILE)
+            left = 2 * int(np.prod(shapes["dbp"]))
+            assert left * hc == per_head
+            if (S, H) in ((128, 80), (128, 48)):
+                assert hc == 8 and ctas["mma"] == (640 if H == 80 else 384)
