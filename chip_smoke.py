@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
 csrc/`` (one nvcc per source, all started together) and then runs eight
 phases (the serving paths of phases 2-4 now include five more
-architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
+architectures, 4a-4e, phase 5a trains and 5b trains on the mesh and
+holds the dry-run's roofline to it); any failure exits non-zero.
 
 1. Each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at the full-width shapes of the serving paths plus edge cases,
@@ -114,6 +115,29 @@ architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
    at full width take 2 steps each (finite losses); the launcher's
    restart drill (reduced qwen2.5-3b, 18 steps, a failure at 12,
    checkpoints every 5) must resume.
+5b. The mesh (``launch/mesh``, ``launch/sharding``, ``launch/dryrun``):
+   (a) ``repro_torch.launch.train`` with ``--data-model 1,1`` trains
+   full-width qwen2.5-3b 3 steps (batch 8 x seq 128) on the card's (1, 1)
+   ``DeviceMesh``, printing the mesh, the leaves by the placements it
+   resolved and the step times; a mesh of one device splits nothing, so
+   the launcher keeps plain tensors there. Gates: finite, falling
+   losses, and 73 rmsnorm and 36 flash attention launches per step each
+   way. One more step runs under the profiler (device-busy and wall
+   ms). Then the trained leaves are placed on those shardings (DTensors,
+   one leaf at a time) and a step on them runs under ``on_mesh`` and the
+   profiler after one that fills DTensor's caches, the kernels on the
+   local shards; gates: finite losses, the same launches, and no op
+   resharded. Then ``elastic_remesh``
+   round-trips the placed params (to numpy, back onto the same
+   shardings): bit-equal, same placements. (b) A
+   subprocess dry-runs the same step (qwen2.5-3b, batch 8 x seq 128,
+   n_micro 1, no remat) on a (1, 1) mesh of the fake process group on
+   ``meta``: its flops, bytes, t_compute, t_memory, t_bound and useful
+   flops beside the profiled step; gate: t_compute and t_memory each at
+   most the step's device-busy time. (c) The same subprocess dry-runs
+   qwen2.5-3b x train_4k on the (16, 16) production mesh with FSDP:
+   its roofline terms, collectives and wire bytes by kind; gate: flops,
+   collectives and wire bytes all > 0.
 6. The platform at full width: two tenants' qwen2.5-3b functions in a
    ``HydraPlatform`` (pool 2, 16 GiB per runtime) pack into one runtime
    with the program count of one; one is generated from (a 128-token
@@ -172,7 +196,7 @@ architectures, 4a-4e, and phase 5a trains); any failure exits non-zero.
 Each serving path sets the launch counters to 0 just before its runtime
 run and reads them just after; the platform, cluster and gateway phases
 count theirs under the paths ``platform``, ``cluster`` and ``gateway``,
-and the training runs under ``train qwen``, ``train mamba2-780m``,
+the mesh phase under ``mesh``, and the training runs under ``train qwen``, ``train mamba2-780m``,
 ``train zamba2-2.7b``, ``train gemma3-1b``, ``train
 granite-moe-1b-a400m`` and ``train drill``. The gradient checks count
 theirs apart (one step's worth on the kernel path, none on the plain
@@ -2158,6 +2182,209 @@ def phase_train(tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the mesh, the launcher's placements and the dry-run's roofline
+# ---------------------------------------------------------------------------
+MESH_ARGV = ["--arch", "qwen2.5-3b", "--full", "--data-model", "1,1",
+             "--steps", "3", "--batch", "8", "--seq", "128", "--lr", "1e-3",
+             "--warmup", "3"]
+# the dry-runs, in a process of their own (a process has one default
+# process group: this one holds the card's nccl group, the dry-run the
+# fake one): the launcher's step on a (1, 1) mesh, and the reference's
+# flagship cell on the production mesh
+DRYRUN_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import ShapeConfig
+from repro_torch.launch.dryrun import run_cell
+step = run_cell("qwen2.5-3b", ShapeConfig("launcher_8x128", 128, 8, "train"),
+                mesh_axes=((1, 1), ("data", "model")), n_micro_override=1,
+                remat=False, out_dir=sys.argv[2])
+flagship = run_cell("qwen2.5-3b", "train_4k", out_dir=sys.argv[2])
+print(json.dumps({"step": step, "flagship": flagship}))
+"""
+
+
+def dryrun_child(out_dir: str) -> dict:
+    """The two dry-runs in a child process with no GPU visible; a failed
+    child fails the phase."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", DRYRUN_CHILD,
+                          os.path.join(ROOT, "src"), out_dir],
+                         capture_output=True, text=True, timeout=600,
+                         env=env, cwd=ROOT)
+    if res.returncode != 0:
+        raise AssertionError(f"mesh: the dry-run child failed "
+                             f"({res.returncode}): {res.stderr[-3000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["child_s"] = time.perf_counter() - t0
+    return out
+
+
+def place_each(tree: dict, shardings: dict) -> None:
+    """``place`` every leaf of ``tree`` into ``tree`` itself, each plain
+    leaf dropped as its DTensor is made: the card never holds the tree
+    twice."""
+    from repro_torch.launch.sharding import place
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            place_each(v, shardings[k])
+        else:
+            tree[k] = place(v, shardings[k])
+
+
+def phase_mesh(tmp: str) -> dict:
+    """Phase 5b (module docstring)."""
+    from repro_torch.ft.checkpoint import _to_numpy
+    from repro_torch.ft.failures import elastic_remesh
+    from repro_torch.launch import train
+    from repro_torch.launch.sharding import (batch_sharding, on_mesh, place,
+                                             use_rules)
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    # (a) the launcher on the card's mesh
+    args = train.parse_args(MESH_ARGV)
+    cfg = train.build(args)[0]
+    counters = zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.run(args)
+    losses, step_ms = run["losses"], run["step_ms"]
+    per_step = {n: fn.launches / args.steps for n, fn in counters.items()}
+    want = train_launches(cfg)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"mesh: losses not finite and falling: "
+                             f"{losses}")
+    for name, n in want.items():
+        if per_step[name] != n:
+            raise AssertionError(f"mesh: {per_step[name]} {name} launches "
+                                 f"per step, want {n}")
+    if run["placed"]:
+        raise AssertionError("mesh: the launcher placed DTensors on a mesh "
+                             "of one device")
+    params, opt_state, step = run["params"], run["opt_state"], run["step_fn"]
+    mesh, rules, pshard = run["mesh"], run["rules"], run["pshard"]
+    del run
+    batch = train_batches(cfg, args, args.steps + 1)[-1]
+    held = {}
+
+    def plain_step():
+        with use_rules(rules):
+            held["m"] = step(params, opt_state, batch)[2]
+    profile = profile_device(plain_step, 1, "mesh (1, 1) train step")
+    profiled_loss = float(held["m"]["loss"])
+
+    # the DTensor route on the card: the trained leaves placed on their
+    # shardings, the step under on_mesh, the kernels on the local shards
+    place_each(params, pshard)
+    place_each(opt_state["m"], pshard)
+    place_each(opt_state["v"], pshard)
+    pbatch = place(batch, batch_sharding(mesh, batch))
+
+    def placed_step():
+        with use_rules(rules), on_mesh() as fallback:
+            held["m"] = step(params, opt_state, pbatch)[2]
+        held["reshards"] = dict(fallback.reshards)
+    # the first step on DTensors fills DTensor's sharding caches
+    t0 = time.perf_counter()
+    placed_step()
+    first_placed_loss = float(held["m"]["loss"])       # waits for the step
+    first_placed_ms = (time.perf_counter() - t0) * 1e3
+    before = {n: fn.launches for n, fn in counters.items()}
+    placed_profile = profile_device(placed_step, 1,
+                                    "mesh (1, 1) train step on DTensors")
+    placed_loss = float(held["m"]["loss"])
+    placed_launches = {n: fn.launches - before[n]
+                       for n, fn in counters.items()}
+    reshards = held["reshards"]
+    if not np.isfinite([first_placed_loss, placed_loss]).all():
+        raise AssertionError(f"mesh: the steps on DTensors gave losses "
+                             f"{first_placed_loss}, {placed_loss}")
+    for name, n in want.items():
+        if placed_launches[name] != n:
+            raise AssertionError(f"mesh: {placed_launches[name]} {name} "
+                                 f"launches in the step on DTensors, want "
+                                 f"{n}")
+    if reshards:
+        raise AssertionError(f"mesh: on_mesh resharded ops on the (1, 1) "
+                             f"mesh, where every layout runs: {reshards}")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[mesh] {mesh}: launcher losses {[round(x, 4) for x in losses]}, "
+        f"step ms {[round(t, 1) for t in step_ms]} (plain tensors); a "
+        f"profiled step (loss {profiled_loss:.4f}) "
+        f"{profile['wall_ms_per_step']:.1f} ms wall, "
+        f"{profile['device_busy_ms_per_step']} ms device busy; on DTensors "
+        f"a first step {first_placed_ms:.1f} ms, the next (loss "
+        f"{placed_loss:.4f}) "
+        f"{placed_profile['wall_ms_per_step']:.1f} ms wall, "
+        f"{placed_profile['device_busy_ms_per_step']} ms device busy, "
+        f"launches {placed_launches}, resharded ops {reshards}; launches "
+        f"per launcher step {per_step}; max_memory_allocated "
+        f"{peak / 1e9:.2f} GB")
+
+    # the elastic round trip: host arrays back onto the same shardings
+    del step, opt_state, held, batch, pbatch, plain_step, placed_step
+    torch.cuda.empty_cache()
+    pshard = train.shardings_of(params)
+    t0 = time.perf_counter()
+    host = tree_map(_to_numpy, params)
+    back = elastic_remesh(host, pshard)
+    remesh_s = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves(params), tree_leaves(back)))
+    equal = sum(torch.equal(a.to_local(), b.to_local())
+                and tuple(a.placements) == tuple(b.placements)
+                for a, b in pairs)
+    del params, back, host
+    torch.cuda.empty_cache()
+    if equal != len(pairs):
+        raise AssertionError(f"mesh: elastic_remesh round trip: {equal} of "
+                             f"{len(pairs)} leaves bit-equal")
+    log(f"[mesh] elastic_remesh round trip: {equal} of {len(pairs)} leaves "
+        f"bit-equal on the same placements in {remesh_s:.1f}s")
+
+    # (b), (c) the dry-runs
+    dr = dryrun_child(os.path.join(tmp, "dryrun"))
+    r = dr["step"]["roofline"]
+    busy = profile["device_busy_ms_per_step"]
+    t_c, t_m = r["t_compute_s"] * 1e3, r["t_memory_s"] * 1e3
+    log(f"[mesh] dry-run of the step, (1, 1) mesh: flops "
+        f"{r['flops_per_device']:.4e}, bytes {r['bytes_per_device']:.4e}, "
+        f"t_compute {t_c:.3f} ms, t_memory {t_m:.3f} ms, t_bound "
+        f"{r['t_bound'] * 1e3:.3f} ms, useful_flops_frac "
+        f"{dr['step']['useful_flops_frac']:.4f}, hbm_fit "
+        f"{dr['step']['hbm_fit_bytes'] / 1e9:.2f} GB; the profiled step: "
+        f"{busy} ms device busy, {profile['wall_ms_per_step']:.1f} ms wall")
+    if not (isinstance(busy, float) and t_c <= busy and t_m <= busy):
+        raise AssertionError(f"mesh: the dry-run's bound (t_compute {t_c} "
+                             f"ms, t_memory {t_m} ms) exceeds the step's "
+                             f"device-busy {busy} ms: a wrong count")
+    f = dr["flagship"]
+    fr = f["roofline"]
+    log(f"[mesh] dry-run qwen2.5-3b x train_4k, 16x16 fake mesh, FSDP: "
+        f"t_compute {fr['t_compute_s']:.4f} s, t_memory "
+        f"{fr['t_memory_s']:.4f} s, t_collective {fr['t_collective_s']:.4f}"
+        f" s ({fr['bottleneck']}), {fr['n_collectives']} collectives, wire "
+        f"bytes by kind {fr['collectives']}, useful "
+        f"{f['useful_flops_frac']:.4f}, hbm_fit "
+        f"{f['hbm_fit_bytes'] / 2**30:.2f} GiB, counted in "
+        f"{f['compile_s']:.1f}s (child {dr['child_s']:.1f}s)")
+    if not (fr["flops_per_device"] > 0 and fr["n_collectives"] > 0
+            and fr["wire_bytes_per_device"] > 0):
+        raise AssertionError(f"mesh: the flagship dry-run counted no "
+                             f"flops, collectives or wire bytes: {fr}")
+    return dict(losses=losses, step_ms=step_ms, launches=launches,
+                launches_per_step=per_step, profile=profile,
+                profiled_loss=profiled_loss, placed_profile=placed_profile,
+                first_placed_ms=first_placed_ms,
+                placed_loss=placed_loss, placed_launches=placed_launches,
+                reshards=reshards, max_memory_allocated=peak,
+                remesh=dict(leaves=len(pairs), bit_equal=equal,
+                            seconds=remesh_s),
+                dryrun_step=dr["step"], dryrun_flagship=f,
+                dryrun_child_s=dr["child_s"])
+
+
+# ---------------------------------------------------------------------------
 # phases 6-7: the platform and the cluster at full width
 # ---------------------------------------------------------------------------
 GiB = 1 << 30
@@ -2915,6 +3142,10 @@ def main() -> int:
         log(f"[train] phase done in {time.perf_counter() - t0:.1f}s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        REPORT["mesh"] = phase_mesh(snap_root)
+        log(f"[mesh] phase done in {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         REPORT["platform"] = phase_platform(snap_root)
         log(f"[platform] phase done in {time.perf_counter() - t0:.1f}s")
         torch.cuda.empty_cache()
@@ -2941,7 +3172,7 @@ def main() -> int:
         r = REPORT["kernels"][name]
         by_path = {arch: p["launches"][name]
                    for arch, p in REPORT["paths"].items()}
-        for path in ("platform", "cluster", "gateway"):
+        for path in ("mesh", "platform", "cluster", "gateway"):
             by_path[path] = REPORT[path]["launches"][name]
         for run in TRAIN_PATHS:
             by_path[f"train {run}"] = REPORT["train"][run]["launches"][name]

@@ -12,9 +12,12 @@ list/tuple indices) joined by ``/``, and a bf16 or fp8 leaf, which
 ``.npy`` cannot name, is stored as a 16- or 8-bit unsigned integer view
 with its logical dtype in the manifest. The views need no ``ml_dtypes``.
 
-``restore`` places every leaf on the device the caller names; a template
-of meta tensors (``torch.empty(shape, dtype=..., device="meta")``) gives
-the tree's structure and shapes without holding any memory.
+``restore`` places every leaf onto its sharding (a tree of
+``launch/sharding.NamedSharding``: a mesh and its placements, as the
+reference re-shards onto the current mesh) or on the device the caller
+names; a template of meta tensors (``torch.empty(shape, dtype=...,
+device="meta")``) gives the tree's structure and shapes without holding
+any memory. A DTensor leaf is saved whole (``full_tensor``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.device import is_dtensor
+
 # logical dtype -> the unsigned integer type its bytes are stored as, and
 # the integer type of the same width that numpy and torch both name, to
 # carry the bytes between them
@@ -36,19 +41,20 @@ _EXOTIC = {"bfloat16": (np.uint16, torch.int16),
 _NP = {torch.int16: np.int16, torch.uint8: np.uint8}
 
 
-def _flatten(tree, prefix: tuple = ()) -> dict:
+def _flatten(tree, prefix: tuple = (), keep: tuple = ()) -> dict:
     """{"/"-joined key path: leaf}; dict keys and sequence indices as
     ``jax.tree_util.tree_flatten_with_path`` names them, None leaves
-    dropped (an empty subtree, as in jax)."""
+    dropped (an empty subtree, as in jax). Instances of ``keep`` (e.g. a
+    sharding, which is a tuple) are leaves."""
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
-            out.update(_flatten(tree[k], prefix + (str(k),)))
+            out.update(_flatten(tree[k], prefix + (str(k),), keep))
         return out
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, keep):
         out = {}
         for i, v in enumerate(tree):
-            out.update(_flatten(v, prefix + (str(i),)))
+            out.update(_flatten(v, prefix + (str(i),), keep))
         return out
     return {} if tree is None else {"/".join(prefix): tree}
 
@@ -77,6 +83,8 @@ def _to_numpy(leaf) -> np.ndarray:
         store = _EXOTIC.get(arr.dtype.name)
         return arr.view(store[0]) if store else arr
     t = leaf.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
     store = _EXOTIC.get(dtype_name(t.dtype))
     if store is not None:
         return t.view(store[1]).cpu().numpy().view(store[0])
@@ -146,8 +154,14 @@ class AsyncCheckpointer:
 
 
 def _host_copy(leaf):
+    """A host copy of ``leaf`` that the step's in-place updates cannot
+    reach: on a mesh of one CPU rank ``full_tensor`` returns the live
+    local tensor itself, so it is copied like a plain one."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        leaf = leaf.detach()
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        return leaf.to("cpu", copy=True)
     return np.array(leaf, copy=True)
 
 
@@ -166,13 +180,18 @@ def latest_step(ckpt_dir: str):
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, template, *, device):
+def restore(ckpt_dir: str, step: int, template, *, shardings=None,
+            device=None):
     """Restore into the structure of ``template`` (a tree whose leaves
-    carry ``.shape``, e.g. meta tensors), every leaf on ``device``."""
-    device = torch.device(device)
+    carry ``.shape``, e.g. meta tensors), every leaf placed onto its
+    entry of ``shardings`` (elastic restore onto the current mesh) or,
+    without one, on ``device`` (the host when None)."""
+    from repro_torch.launch.sharding import place
     final = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
+    flat_s = _flatten(shardings, keep=tuple) if shardings is not None \
+        else {}
     leaves = {}
     for key, tmpl in _flatten(template).items():
         meta = manifest["keys"][key]
@@ -187,5 +206,7 @@ def restore(ckpt_dir: str, step: int, template, *, device):
         if tuple(t.shape) != want:
             raise ValueError(f"checkpoint leaf {key}: shape {tuple(t.shape)}"
                              f", template wants {want}")
-        leaves[key] = t.to(device)
+        sh = flat_s.get(key)
+        leaves[key] = (place(t, sh) if sh is not None
+                       else t if device is None else t.to(device))
     return _unflatten(template, leaves)

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.device import local, reduce_shards
 from repro_torch.optim.adamw import chunks, tree_leaves, tree_map
 
 
@@ -41,8 +42,8 @@ class ErrorFeedbackCompression:
     def init(self, params):
         return {
             "inner": self.inner.init(params),
-            "residual": tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params),
+            "residual": tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params),
         }
 
     @torch.no_grad()
@@ -51,9 +52,11 @@ class ErrorFeedbackCompression:
             if g.dtype != torch.float32:
                 raise TypeError("ErrorFeedbackCompression updates fp32 "
                                 f"gradients in place, got {g.dtype}")
+            like, g, r = g, local(g), local(r)
             r.add_(g)                       # r = corrected = g + residual
             lo, hi = torch.aminmax(r)
-            scale = (torch.maximum(-lo, hi) + 1e-12) / 127.0
+            amax = reduce_shards(torch.maximum(-lo, hi), like, "max")
+            scale = (amax + 1e-12) / 127.0
             for gc, rc in chunks(g, r):
                 # dequantize(quantize(corrected)): the int8 round trip of
                 # an integer in [-127, 127] is exact, so it is skipped

@@ -5,7 +5,7 @@ On a real pod these hook the runtime's heartbeat bus; on one card they
 drive the SAME recovery code paths (restore + re-place + resume) so the
 logic is exercised end-to-end in tests and examples. ``InjectedFailure``,
 ``FailureInjector``, ``HeartbeatMonitor`` and ``StepGuard`` are pure
-Python copies; ``elastic_remesh`` is the one-device form (see there).
+Python copies; ``elastic_remesh`` places onto DTensor shardings.
 """
 from __future__ import annotations
 
@@ -14,7 +14,6 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 
 class InjectedFailure(RuntimeError):
@@ -67,21 +66,15 @@ class HeartbeatMonitor:
             return list(self._last)
 
 
-def elastic_remesh(tree, device):
-    """Re-place a tree of host arrays (or tensors) onto ``device``.
+def elastic_remesh(tree, shardings):
+    """Re-place a tree onto new shardings (mesh grown or shrunk).
 
-    Used after restore when the device changed: checkpoint leaves are host
-    arrays; this copies each onto the device. The reference scatters them
-    onto the shardings of a new mesh; the port has one device and no mesh
-    or sharding yet, so this is that call's one-device counterpart and
-    takes a device in place of shardings.
-    """
-    dev = torch.device(device)
-    if isinstance(tree, dict):
-        return {k: elastic_remesh(v, dev) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.to(dev)
-    return torch.from_numpy(np.array(tree)).to(dev)
+    Used after restore when the device pool changed: checkpoint leaves are
+    host arrays (or tensors); this scatters each onto its
+    ``launch/sharding.NamedSharding`` (a ``DeviceMesh`` and its placements,
+    by ``distribute_tensor``)."""
+    from repro_torch.launch.sharding import place
+    return place(tree, shardings)
 
 
 @dataclass

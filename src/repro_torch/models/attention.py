@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import shard
 from repro_torch.models.layers import dense_init, rotary
 
 # "no window" sentinel: the reference's int32.max // 2. The kernels apply
@@ -17,19 +18,21 @@ GLOBAL_WINDOW = 1073741823
 
 
 def init_attention(gen: torch.Generator, cfg, stack: int | None = None,
-                   dtype=torch.float32):
+                   dtype=torch.float32, device=None):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     lead = (stack,) if stack else ()
+    dev = gen.device if device is None else device
+    kw = dict(dtype=dtype, device=dev)
     p = {
-        "wq": dense_init(gen, lead + (d, hq * hd), dtype=dtype),
-        "wk": dense_init(gen, lead + (d, hkv * hd), dtype=dtype),
-        "wv": dense_init(gen, lead + (d, hkv * hd), dtype=dtype),
-        "wo": dense_init(gen, lead + (hq * hd, d), in_axis=-2, dtype=dtype),
+        "wq": dense_init(gen, lead + (d, hq * hd), **kw),
+        "wk": dense_init(gen, lead + (d, hkv * hd), **kw),
+        "wv": dense_init(gen, lead + (d, hkv * hd), **kw),
+        "wo": dense_init(gen, lead + (hq * hd, d), in_axis=-2, **kw),
     }
     if cfg.qkv_bias:
         zeros = lambda n: torch.zeros(lead + (n,), dtype=dtype,
-                                      device=gen.device)
+                                      device=dev)
         p["bq"], p["bk"], p["bv"] = zeros(hq * hd), zeros(hkv * hd), \
             zeros(hkv * hd)
     return p
@@ -47,7 +50,8 @@ def _project_qkv(p, x: torch.Tensor, cfg):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    return (q.reshape(B, S, cfg.n_heads, hd),
+    return (shard(q.reshape(B, S, cfg.n_heads, hd), "batch", None, "heads",
+                  None),
             k.reshape(B, S, cfg.n_kv_heads, hd),
             v.reshape(B, S, cfg.n_kv_heads, hd))
 
@@ -61,7 +65,7 @@ def attention_prefill(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     out = ops.flash_attention(q, k, v, causal=True, window=window)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
-    return out @ p["wo"].to(x.dtype), (k, v)
+    return shard(out @ p["wo"].to(x.dtype), "batch", None, None), (k, v)
 
 
 def attention_decode(p, x1: torch.Tensor, cfg, k_cache: torch.Tensor,
@@ -86,8 +90,10 @@ def attention_decode(p, x1: torch.Tensor, cfg, k_cache: torch.Tensor,
     at = pos.clamp(0, S - 1)
     k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
+    k_cache = shard(k_cache, "batch", "kv_seq", "kv_heads", None)
+    v_cache = shard(v_cache, "batch", "kv_seq", "kv_heads", None)
 
     out = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths + 1,
                                window=window)
     out = out.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim)
-    return out @ p["wo"].to(x1.dtype)
+    return shard(out @ p["wo"].to(x1.dtype), "batch", None, None)

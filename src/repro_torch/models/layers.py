@@ -2,17 +2,21 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import ops
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
-               dtype=torch.float32) -> torch.Tensor:
+               dtype=torch.float32, device=None) -> torch.Tensor:
     """Truncated-normal fan-in init: N(0, 1) cut to [-2, 2] times
-    ``fan_in ** -0.5``, drawn on the generator's device."""
+    ``fan_in ** -0.5``, drawn on ``device`` (the generator's unless
+    given: a CPU generator draws ``meta`` tensors, which hold no data)."""
     shape = tuple(shape)
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    t = torch.empty(shape, dtype=torch.float32,
+                    device=gen.device if device is None else device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(fan_in ** -0.5).to(dtype)
 
@@ -44,4 +48,22 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  dtype) -> torch.Tensor:
-    return table[tokens.long()].to(dtype)
+    """Rows of ``table`` by ``tokens`` (``F.embedding``: its backward is
+    the embedding backward, which DTensor shards by the vocab; an index's
+    backward, ``index_put``, has no working strategy there). From a
+    vocab-sharded DTensor table the rows are a masked partial sum, which
+    DTensor can reduce only once, so it is reduced here, before the rows
+    have two readers (the residual and the norm). A table split over its
+    width (FSDP) is gathered to whole rows first: DTensor's masked sum
+    keeps the mask of the tokens as they lie, which no longer fits the
+    rows once the lookup has moved the tokens."""
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+        table = table.redistribute(table.device_mesh, [
+            p if p.is_shard(0) else Replicate() for p in table.placements])
+    out = F.embedding(tokens.long(), table)
+    if is_dtensor(out) and any(p.is_partial() for p in out.placements):
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return out.to(dtype)

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import shard
 from repro_torch.models.layers import dense_init
 
 
@@ -15,13 +16,14 @@ def is_gated(activation: str) -> bool:
 
 
 def init_mlp(gen: torch.Generator, cfg, stack: int | None = None,
-             dtype=torch.float32):
+             dtype=torch.float32, device=None):
     d, f = cfg.d_model, cfg.d_ff
     lead = (stack,) if stack else ()
-    p = {"w_up": dense_init(gen, lead + (d, f), dtype=dtype),
-         "w_down": dense_init(gen, lead + (f, d), dtype=dtype)}
+    kw = dict(dtype=dtype, device=device)
+    p = {"w_up": dense_init(gen, lead + (d, f), **kw),
+         "w_down": dense_init(gen, lead + (f, d), **kw)}
     if is_gated(cfg.activation):
-        p["w_gate"] = dense_init(gen, lead + (d, f), dtype=dtype)
+        p["w_gate"] = dense_init(gen, lead + (d, f), **kw)
     return p
 
 
@@ -39,9 +41,9 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D)."""
     dt = x.dtype
-    up = x @ p["w_up"].to(dt)
+    up = shard(x @ p["w_up"].to(dt), "batch", None, "ff")
     if is_gated(cfg.activation):
         h = _act(x @ p["w_gate"].to(dt), cfg.activation) * up
     else:
         h = _act(up, cfg.activation)
-    return h @ p["w_down"].to(dt)
+    return shard(h @ p["w_down"].to(dt), "batch", None, None)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import shard
 from repro_torch.models.layers import dense_init
 from repro_torch.models.mlp import _act, is_gated
 
@@ -30,14 +31,15 @@ _GROUP_TOKENS = 2048  # routing group size (sort locality; multiple of DP shards
 
 
 def init_moe(gen: torch.Generator, cfg, stack: int | None = None,
-             dtype=torch.float32):
+             dtype=torch.float32, device=None):
     d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
     lead = (stack,) if stack else ()
-    p = {"router": dense_init(gen, lead + (d, E), dtype=dtype),
-         "w_up": dense_init(gen, lead + (E, d, f), dtype=dtype),
-         "w_down": dense_init(gen, lead + (E, f, d), dtype=dtype)}
+    kw = dict(dtype=dtype, device=device)
+    p = {"router": dense_init(gen, lead + (d, E), **kw),
+         "w_up": dense_init(gen, lead + (E, d, f), **kw),
+         "w_down": dense_init(gen, lead + (E, f, d), **kw)}
     if is_gated(cfg.activation):
-        p["w_gate"] = dense_init(gen, lead + (E, d, f), dtype=dtype)
+        p["w_gate"] = dense_init(gen, lead + (E, d, f), **kw)
     return p
 
 
@@ -105,11 +107,12 @@ def route(p, xg: torch.Tensor, cfg, C: int) -> Routing:
     dest = torch.where(keep, e_sorted * C + pos_in_e, E * C)    # sentinel slot
 
     # --- slot -> token index and slot gate; only the discarded sentinel
-    # cell receives more than one write ---
-    slot_tok = torch.full((G, E * C + 1), Tg, dtype=order.dtype,
-                          device=dev).scatter_(-1, dest, tok_sorted)
-    slot_gate = torch.zeros((G, E * C + 1), dtype=torch.float32,
-                            device=dev).scatter_(
+    # cell receives more than one write (the buffers are made like
+    # ``dest``, so a DTensor routing scatters into a DTensor) ---
+    slot_tok = dest.new_full((G, E * C + 1), Tg, dtype=order.dtype
+                             ).scatter_(-1, dest, tok_sorted)
+    slot_gate = dest.new_zeros((G, E * C + 1), dtype=torch.float32
+                               ).scatter_(
         -1, dest, torch.where(keep, g_sorted, 0.0))
     # each choice's slot, back in (token, choice) order: order is a
     # permutation, so this scatter writes every cell once
@@ -128,13 +131,13 @@ def apply_moe(p, x: torch.Tensor, cfg, n_groups: int = 1):
     assert T % G == 0, (T, G)
     Tg = T // G
     C = _capacity(Tg, cfg)
-    xg = x.reshape(G, Tg, D)
+    xg = shard(x.reshape(G, Tg, D), "batch", None, None)
     r = route(p, xg, cfg, C)
 
     # --- gather tokens into (G, E, C, D) slots (sentinel row = zeros) ---
     x_pad = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
     ex_in = x_pad.gather(1, r.slot_tok[..., None].expand(-1, -1, D))
-    ex_in = ex_in.view(G, E, C, D)
+    ex_in = shard(ex_in.view(G, E, C, D), "batch", "experts", None, None)
 
     # --- batched per-expert FFN (active FLOPs only) ---
     up = torch.einsum("gecd,edf->gecf", ex_in, p["w_up"].to(dt))
@@ -143,7 +146,8 @@ def apply_moe(p, x: torch.Tensor, cfg, n_groups: int = 1):
         h = _act(g, cfg.activation) * up
     else:
         h = _act(up, cfg.activation)
-    ex_out = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    ex_out = shard(torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt)),
+                   "batch", "experts", None, None)
 
     # --- combine: each choice gathers its gated slot (a dropped one the
     # zero sentinel row), summed in ascending expert id ---
@@ -155,4 +159,4 @@ def apply_moe(p, x: torch.Tensor, cfg, n_groups: int = 1):
     out = vals[:, :, 0]
     for k in range(1, K):
         out = out + vals[:, :, k]
-    return out.reshape(B, S, D), r.aux
+    return shard(out.reshape(B, S, D), "batch", None, None), r.aux

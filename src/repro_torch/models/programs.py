@@ -10,6 +10,7 @@ of one architecture shares one program):
   prefill(params, batch)             -> (last_logits, cache)
   decode_step(params, cache, batch)  -> (logits, cache)   [cache in place]
   cache_specs(batch, seq)            -> {name: TensorSpec} (no allocation)
+  input_specs(shape)                 -> {name: TensorSpec} (no allocation)
 
 A batch holds ``tokens`` (B,S) int32, and ``embeds`` where the family
 takes them: a vlm's prefix (B,frontend_tokens,D), an audio model's frames
@@ -35,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import is_dtensor, resolve_device, torch_dtype
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.moe import n_route_groups
@@ -62,12 +63,55 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         hit = torch.arange(V, device=logits.device) == safe[..., None]
         ll = torch.where(hit, logits, 0.0).sum(-1)
     elif mode == "gather":
-        ll = logits.gather(-1, safe[..., None])[..., 0]
+        ll = _label_logit(logits, safe)
     else:
         raise ValueError(f"cross_entropy mode {mode!r}")
     mask = (labels != ignore).float()
     n = mask.sum().clamp(min=1.0)
     return ((logz - ll) * mask).sum() / n
+
+
+def _label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]`` by a gather. On a DTensor whose vocab dim is
+    sharded, each rank gathers from its own slice, masks the labels that
+    lie outside it and the slices' results are summed (a partial sum over
+    the vocab's mesh dims): DTensor's own gather over a sharded dim leaves
+    a masked partial that it cannot reduce."""
+    from torch.distributed.tensor import DTensor
+    vd = logits.ndim - 1
+    if not (isinstance(logits, DTensor)
+            and any(p.is_shard(vd) for p in logits.placements)):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    vocab_dims = [i for i, p in enumerate(pl) if p.is_shard(vd)]
+
+    def local(lg, lab):
+        n = lg.shape[-1]
+        coord = mesh.get_coordinate()
+        slot = 0
+        for i in vocab_dims:        # the slice's index, major dim first
+            slot = slot * mesh.size(i) + coord[i]
+        idx = lab.long() - slot * n
+        inside = (idx >= 0) & (idx < n)
+        got = lg.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+
+    return local_map(
+        local, out_placements=[Partial() if p.is_shard(vd) else p
+                               for p in pl],
+        in_placements=(list(pl), [Replicate() if p.is_shard(vd) else p
+                                  for p in pl]),
+        device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+
+
+def _layout(t) -> tuple:
+    """Where a leaf lies: its device, and its mesh and placements if it
+    is a DTensor."""
+    if is_dtensor(t):
+        return (t.device, t.device_mesh, tuple(t.placements))
+    return (t.device,)
 
 
 def _grad_leaves(params, grads):
@@ -124,10 +168,13 @@ class ModelProgram:
     # ------------------------------------------------------------------
     def init(self, seed: int = 0, device=None, dtype=torch.float32):
         """Random weights from a ``torch.Generator`` seeded with ``seed``
-        on ``device`` (CUDA unless the caller passes another)."""
+        on ``device`` (CUDA unless the caller passes another). On ``meta``
+        the tree's shapes and dtypes with no data, drawn from a CPU
+        generator, since no generator lives on ``meta``."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return tf.init_params(gen, self.cfg, dtype=dtype)
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+        return tf.init_params(gen.manual_seed(seed), self.cfg, dtype=dtype,
+                              device=dev)
 
     def _n_groups(self, batch) -> int:
         if self.cfg.moe is None:
@@ -153,18 +200,22 @@ class ModelProgram:
         """The train step with gradient accumulation over ``n_micro``
         micro-batches; params and optimizer state are updated in place
         (module docstring) and returned."""
-        grads = {}                 # the fp32 gradient buffer, at first use
+        grads = {}     # the fp32 gradient buffer, made at first use and
+        # again when the params come in another layout (placed on a mesh)
 
         def backward(leaves, batch):
             with torch.enable_grad():
                 loss, _ = self.loss_fn(leaves, batch)
                 loss.backward()
-            return loss.detach()
+            loss = loss.detach()
+            return loss.full_tensor() if is_dtensor(loss) else loss
 
         def train_step(params, opt_state, batch):
-            if not grads:
-                grads.update(tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params))
+            if not grads or _layout(tree_leaves(grads)[0]) != _layout(
+                    tree_leaves(params)[0]):
+                grads.clear()
+                grads.update(tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.float32), params))
             else:
                 for g in tree_leaves(grads):
                     g.zero_()
@@ -218,3 +269,31 @@ class ModelProgram:
 
     def cache_bytes(self, batch: int, seq: int) -> int:
         return sum(s.nbytes for s in self.cache_specs(batch, seq).values())
+
+    def input_specs(self, shape) -> dict:
+        """Stand-ins for the batch of the entry point ``shape.kind`` names
+        (a ``ShapeConfig``):
+
+        train  -> {tokens?, embeds?, labels}
+        prefill-> {tokens?, embeds?}
+        decode -> {tokens?/embeds?} (the cache comes from cache_specs)
+        """
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        dt = torch_dtype(cfg.dtype)
+        if shape.kind == "decode":
+            if cfg.family == "audio":
+                return {"embeds": TensorSpec((B, 1, cfg.d_model), dt)}
+            return {"tokens": TensorSpec((B, 1), torch.int32)}
+        batch = {}
+        if cfg.family == "audio":
+            batch["embeds"] = TensorSpec((B, S, cfg.d_model), dt)
+        elif cfg.family == "vlm":
+            ft = cfg.frontend_tokens
+            batch["embeds"] = TensorSpec((B, ft, cfg.d_model), dt)
+            batch["tokens"] = TensorSpec((B, S - ft), torch.int32)
+        else:
+            batch["tokens"] = TensorSpec((B, S), torch.int32)
+        if shape.kind == "train":
+            batch["labels"] = TensorSpec((B, S), torch.int32)
+        return batch

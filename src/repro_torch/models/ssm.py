@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import shard
 from repro_torch.models.layers import dense_init
 
 
@@ -19,24 +20,26 @@ def conv_dim(cfg) -> int:
 
 
 def init_mamba(gen: torch.Generator, cfg, stack: int | None = None,
-               dtype=torch.float32):
+               dtype=torch.float32, device=None):
     d, din, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     cd = conv_dim(cfg)
     lead = (stack,) if stack else ()
+    dev = gen.device if device is None else device
     full = lambda shape, v: torch.full(lead + shape, v, dtype=dtype,
-                                       device=gen.device)
-    conv_w = dense_init(gen, lead + (cfg.ssm_conv, cd)).mul_(0.1).to(dtype)
+                                       device=dev)
+    conv_w = dense_init(gen, lead + (cfg.ssm_conv, cd),
+                        device=dev).mul_(0.1).to(dtype)
     # in_proj -> [z (din), xBC (din + 2N), dt (H)]
     return {
         "in_proj": dense_init(gen, lead + (d, 2 * din + 2 * N + H),
-                              dtype=dtype),
+                              dtype=dtype, device=dev),
         "conv_w": conv_w,
         "conv_b": full((cd,), 0.0),
         "A_log": full((H,), 0.0),           # A = -exp(A_log) = -1
         "D": full((H,), 1.0),
         "dt_bias": full((H,), -1.0),        # softplus(-1) ~ 0.31
         "norm": full((din,), 0.0),
-        "out_proj": dense_init(gen, lead + (din, d), dtype=dtype),
+        "out_proj": dense_init(gen, lead + (din, d), dtype=dtype, device=dev),
     }
 
 
@@ -77,7 +80,8 @@ def mamba_prefill(p, x: torch.Tensor, cfg, *, return_state: bool = False):
     B, S, _ = x.shape
     din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     dt_ = x.dtype
-    z, xbc_pre, dt = _split_proj(x @ p["in_proj"].to(dt_), cfg)
+    zxbcdt = shard(x @ p["in_proj"].to(dt_), "batch", None, "ff")
+    z, xbc_pre, dt = _split_proj(zxbcdt, cfg)
     xbc = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"])
     # column slices of xbc: the scan reads them through their strides
     xin, Bm, Cm = xbc[..., :din], xbc[..., din:din + N], xbc[..., din + N:]
@@ -88,7 +92,7 @@ def mamba_prefill(p, x: torch.Tensor, cfg, *, return_state: bool = False):
     y, state = res if return_state else (res, None)
     y = y + p["D"].to(dt_)[None, None, :, None] * xh
     y = _gated_norm(y.reshape(B, S, din), z, p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(dt_)
+    out = shard(y @ p["out_proj"].to(dt_), "batch", None, None)
     if not return_state:
         return out, None
     k = cfg.ssm_conv

@@ -30,6 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import torch_dtype
+from repro_torch.launch.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -50,43 +51,45 @@ def hybrid_groups(cfg) -> int:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def init_params(gen: torch.Generator, cfg, dtype=torch.float32):
-    """Random weights drawn from ``gen`` on its device. Each leaf is drawn
-    in fp32 and cast to ``dtype`` at once, so a full-width bf16 init never
-    holds the whole fp32 model."""
+def init_params(gen: torch.Generator, cfg, dtype=torch.float32,
+                device=None):
+    """Random weights drawn from ``gen`` on its device (or on ``device``:
+    ``meta`` from a CPU generator gives the tree with no data). Each leaf
+    is drawn in fp32 and cast to ``dtype`` at once, so a full-width bf16
+    init never holds the whole fp32 model."""
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
-    dev = gen.device
-    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
+    dev = gen.device if device is None else device
+    kw = dict(dtype=dtype, device=dev)
+    zeros = lambda *shape: torch.zeros(shape, **kw)
     params = {}
     if cfg.family != "audio":
-        params["embed"] = {"tok": dense_init(gen, (V, D), in_axis=-1,
-                                             dtype=dtype)}
+        params["embed"] = {"tok": dense_init(gen, (V, D), in_axis=-1, **kw)}
     if cfg.family in ("ssm", "hybrid"):
         params["layers"] = {"ln1": zeros(L, D),
                             "ssm": ssm_mod.init_mamba(gen, cfg, stack=L,
-                                                      dtype=dtype)}
+                                                      **kw)}
     else:
         params["layers"] = {
             "ln1": zeros(L, D),
-            "attn": attn.init_attention(gen, cfg, stack=L, dtype=dtype),
+            "attn": attn.init_attention(gen, cfg, stack=L, **kw),
             "ln2": zeros(L, D),
         }
         if cfg.moe is not None:
             params["layers"]["moe"] = moe_mod.init_moe(gen, cfg, stack=L,
-                                                       dtype=dtype)
+                                                       **kw)
         else:
             params["layers"]["mlp"] = mlp_mod.init_mlp(gen, cfg, stack=L,
-                                                       dtype=dtype)
+                                                       **kw)
     if cfg.family == "hybrid":
         params["shared"] = {
             "ln1": zeros(D),
-            "attn": attn.init_attention(gen, cfg, dtype=dtype),
+            "attn": attn.init_attention(gen, cfg, **kw),
             "ln2": zeros(D),
-            "mlp": mlp_mod.init_mlp(gen, cfg, dtype=dtype),
+            "mlp": mlp_mod.init_mlp(gen, cfg, **kw),
         }
     params["final_norm"] = zeros(D)
     if not cfg.tie_embeddings or cfg.family == "audio":
-        params["lm_head"] = dense_init(gen, (D, V), dtype=dtype)
+        params["lm_head"] = dense_init(gen, (D, V), **kw)
     return params
 
 
@@ -120,8 +123,10 @@ def _unembed(params, cfg, h: torch.Tensor) -> torch.Tensor:
     dt = h.dtype
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return h @ params["embed"]["tok"].to(dt).T
-    return h @ params["lm_head"].to(dt)
+        logits = h @ params["embed"]["tok"].to(dt).T
+    else:
+        logits = h @ params["lm_head"].to(dt)
+    return shard(logits, "batch", None, "vocab")
 
 
 def _ffn(p_l, hn: torch.Tensor, cfg, n_groups: int) -> tuple:
@@ -161,14 +166,31 @@ def _shared_after(cfg, i: int) -> bool:
 # ---------------------------------------------------------------------------
 # train forward (no cache)
 # ---------------------------------------------------------------------------
+def _save_dots():
+    """Selective-checkpoint contexts that save the matmul outputs and
+    recompute the rest: the counterpart of JAX's ``checkpoint_dots``."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    aten = torch.ops.aten
+    dots = {aten.mm.default, aten.bmm.default, aten.addmm.default,
+            aten.baddbmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
 def _remat_wrap(body, remat):
     """``body`` recomputed in the backward (non-reentrant
-    ``torch.utils.checkpoint``) when ``remat`` is set. The reference's
-    ``"dots"`` policy (keep the matmul outputs, recompute the rest) has no
-    exact torch counterpart; it is taken as full remat of the body, which
-    trades more recompute for less memory than the reference keeps."""
+    ``torch.utils.checkpoint``) when ``remat`` is set; ``"dots"`` keeps
+    the matmul outputs and recomputes the rest, as the reference's
+    ``checkpoint_dots`` policy does."""
     if not remat:
         return body
+    if remat == "dots":
+        return lambda *args: checkpoint(body, *args, use_reentrant=False,
+                                        context_fn=_save_dots)
     return lambda *args: checkpoint(body, *args, use_reentrant=False)
 
 
@@ -178,7 +200,7 @@ def forward(params, cfg, tokens=None, embeds=None, *, remat=False,
     fp32 scalar: the MoE load-balance loss summed over layers, 0 for the
     other families). ``remat`` recomputes each layer body (the hybrid:
     each group of Mamba layers with its shared block) in the backward."""
-    h = _embed(params, cfg, tokens, embeds)
+    h = shard(_embed(params, cfg, tokens, embeds), "batch", None, None)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -227,7 +249,7 @@ def prefill(params, cfg, tokens=None, embeds=None, *, n_groups: int = 1):
     dense, moe, vlm, audio  {k, v: (L,B,S,Hkv,hd), length};
     ssm     {conv: (L,B,k-1,conv_dim), state: (L,B,H,P,N) fp32, length};
     hybrid  the ssm leaves plus {k, v: (G,B,S,Hkv,hd)}, G = L // k."""
-    h = _embed(params, cfg, tokens, embeds)
+    h = shard(_embed(params, cfg, tokens, embeds), "batch", None, None)
     B, S, _ = h.shape
     dt = h.dtype
     positions = torch.arange(S, device=h.device)[None, :]
@@ -255,7 +277,12 @@ def prefill(params, cfg, tokens=None, embeds=None, *, n_groups: int = 1):
                 ks.append(k.to(dt))
                 vs.append(v.to(dt))
         cache = {"conv": torch.stack(convs), "state": torch.stack(states)}
-    if ks:
+    if cfg.family not in ("ssm", "hybrid"):
+        cache["k"] = shard(torch.stack(ks), None, "batch", "kv_seq",
+                           "kv_heads", None)
+        cache["v"] = shard(torch.stack(vs), None, "batch", "kv_seq",
+                           "kv_heads", None)
+    elif ks:
         cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
     cache["length"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
     # the last position of B > 1 rows is a strided view; the norm's

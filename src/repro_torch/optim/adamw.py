@@ -18,6 +18,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.device import local, reduce_shards
+
 CHUNK = 1 << 24           # elements per in-place slice of a leaf
 
 
@@ -54,11 +56,18 @@ def chunks(*ts):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, in fp32, on the leaves'
-    device (a reduction per leaf, no squared copy)."""
-    leaves = tree_leaves(tree)
-    sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square()
-          for x in leaves]
-    return torch.sqrt(torch.stack(sq).sum())
+    device (a reduction per leaf, no squared copy). A DTensor leaf's
+    local sum is summed over the mesh dims it is split on, one reduction
+    for each placement the leaves share."""
+    by_layout = {}
+    for x in tree_leaves(tree):
+        sq = torch.linalg.vector_norm(local(x), dtype=torch.float32).square()
+        key = (id(x.device_mesh), tuple(x.placements)) \
+            if hasattr(x, "placements") else None
+        by_layout.setdefault(key, (x, []))[1].append(sq)
+    total = [reduce_shards(torch.stack(sqs).sum(), like)
+             for like, sqs in by_layout.values()]
+    return torch.sqrt(torch.stack(total).sum())
 
 
 @dataclass(frozen=True)
@@ -71,8 +80,7 @@ class AdamW:
     clip_norm: float = 1.0
 
     def init(self, params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         dev = tree_leaves(params)[0].device
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -93,7 +101,8 @@ class AdamW:
         lr = self.lr(step)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["v"]), tree_leaves(params)):
-            self._leaf(g, m, v, p, scale, bc1, bc2, lr)
+            self._leaf(local(g), local(m), local(v), local(p), scale, bc1,
+                       bc2, lr)
         return params, state, {"grad_norm": gnorm, "lr": lr}
 
     def _leaf(self, g, m, v, p, scale, bc1, bc2, lr) -> None:

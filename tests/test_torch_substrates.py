@@ -35,11 +35,22 @@ def test_data_pipeline_is_the_references_bit_for_bit():
 
 
 def test_elastic_remesh_places_host_leaves_on_the_device():
+    """Host arrays and tensors go onto their shardings (a (1, 1) CPU mesh,
+    the reference's shardings) and come back bit-equal."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import NamedSharding
+    mesh = make_local_mesh(1, 1, device_type="cpu")
+    sh = {"w": NamedSharding(mesh, (Shard(0), Replicate())),
+          "s": {"t": NamedSharding(mesh, (Replicate(), Replicate()))}}
     out = elastic_remesh({"w": np.arange(4, dtype=np.float32),
-                          "s": {"t": torch.ones(2)}}, "cpu")
-    assert isinstance(out["w"], torch.Tensor) and out["w"].device.type == "cpu"
-    np.testing.assert_array_equal(out["w"].numpy(), np.arange(4))
-    assert torch.equal(out["s"]["t"], torch.ones(2))
+                          "s": {"t": torch.ones(2)}}, sh)
+    assert out["w"].device.type == "cpu"
+    assert tuple(out["w"].placements) == sh["w"].placements
+    np.testing.assert_array_equal(out["w"].full_tensor().numpy(),
+                                  np.arange(4))
+    assert torch.equal(out["s"]["t"].full_tensor(), torch.ones(2))
 
 
 def test_reference_checkpoint_resumes_in_the_port(tmp_path, capsys):
