@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc/`` (one nvcc per source, all started together) and then runs eight
+csrc/`` (one nvcc per source, all started together) and then runs nine
 phases (the serving paths of phases 2-4 now include five more
 architectures, 4a-4e, phase 5a trains and 5b trains on the mesh and
 holds the dry-run's roofline to it); any failure exits non-zero.
@@ -192,10 +192,39 @@ holds the dry-run's roofline to it); any failure exits non-zero.
    emulated function is one affine program, so the four kernels'
    counters over the phase are reported and expected to be 0 (not a
    gate).
+9. The paper's Table 1 functions and the port's examples, in three parts:
+   (a) the nine functions of ``repro_torch.functions`` registered in one
+       ``HydraRuntime`` on the card, each invoked on ``example_args`` and
+       on seeded random inputs sent as numpy host payloads, and held to
+       the same function on CPU tensors with the same params (the hash,
+       helloworld, dynamic-html and the labels exactly; thumbnail, video
+       and uploader to fp32 2e-5; compress tie-aware: the kept
+       coefficients equal outside a band of 2e-5 x max |f| around the
+       threshold); per function the registration ms and the warm invoke
+       wall ms, p50 and p99 over 50 invokes; 9 programs after
+       registration, none added by the invokes, 9 hits when the nine
+       register again; ``memory_allocated`` within the registrations'
+       reserves once the cuBLAS workspaces that the runtime's worker
+       threads make are set apart (reported beside it);
+   (b) ``examples/torch_quickstart.py``'s flow with full-width
+       qwen2.5-3b (the port's seeded bf16 init, max_seq 64, slots 1)
+       beside the nine in one runtime of 8 GiB: its 8 tokens equal the
+       plain path's on the same weights (on a bf16 near-tie, the first
+       logits within 5e-2 relative RMS); rmsnorm, flash and decode
+       attention must launch; the LM's registration and generate
+       times, the reservation and ``max_memory_allocated``;
+   (c) the five ``examples/torch_*.py`` as a user runs them, each a child
+       process with its own time limit that must exit 0 and print its
+       lines: the trace replay's Azure leg, the quickstart's stats, the
+       gateway replay's gates, both serve legs, and the training run's
+       restore after its injected failure with finite losses. Each
+       child's output goes to ``chiprun_out/<example>.log``.
 
 Each serving path sets the launch counters to 0 just before its runtime
-run and reads them just after; the platform, cluster and gateway phases
-count theirs under the paths ``platform``, ``cluster`` and ``gateway``,
+run and reads them just after; the platform, cluster, gateway and
+examples phases count theirs under the paths ``platform``, ``cluster``,
+``gateway`` and ``examples`` (part (b): the child processes of part (c)
+keep their own counters),
 the mesh phase under ``mesh``, and the training runs under ``train qwen``, ``train mamba2-780m``,
 ``train zamba2-2.7b``, ``train gemma3-1b``, ``train
 granite-moe-1b-a400m`` and ``train drill``. The gradient checks count
@@ -3054,6 +3083,308 @@ def phase_gateway(tmp: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Table 1 catalog and the port's examples
+# ---------------------------------------------------------------------------
+INVOKES = 50                     # timed warm invokes per catalog function
+# outputs held to fp32 2e-5 (the rest: exact, labels equal, compress
+# tie-aware)
+FP32_FUNCTIONS = ("py/thumbnail", "py/video", "js/uploader")
+# each example as a user runs it: time limit (s), lines its output holds
+EXAMPLES = {
+    "torch_trace_replay.py": (90, ("== azure replay:",
+                                   "== hydra-cluster (4 nodes")),
+    "torch_quickstart.py": (120, ("lm generate ->", "runtime stats:")),
+    "torch_gateway_replay.py": (180, ("live gateway:",
+                                      "derived calibration")),
+    "torch_serve_multitenant.py": (180, ("=== single-node HydraPlatform ===",
+                                         "=== two-node HydraCluster ===",
+                                         "[serve] cluster placement")),
+    "torch_train_lm.py": (240, ("[train] FAILURE: injected node failure",
+                                "[train] restored step")),
+}
+
+
+def load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name[:-3]}", os.path.join(ROOT, "examples", name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def catalog_inputs(key: str, spec, rng) -> dict:
+    """Seeded numpy inputs of a catalog function's registered shapes:
+    random bytes for the hash; for dynamic-html duplicate and negative
+    slots with integer-valued values (a slot's sum is then exact in any
+    order); standard normal fp32 elsewhere (the compress signal too)."""
+    out = {}
+    for name, x in spec.example_args.items():
+        shape = tuple(x.shape)
+        if x.dtype == torch.uint8:
+            out[name] = rng.integers(0, 256, shape).astype(np.uint8)
+        elif x.dtype == torch.int32:
+            slots = rng.integers(-6000, 6000, shape).astype(np.int32)
+            slots[1::3] = slots[0::3][:len(slots[1::3])]
+            out[name] = slots
+        elif key == "js/dynamic-html":
+            out[name] = rng.integers(-8, 9, shape).astype(np.float32)
+        else:
+            out[name] = rng.standard_normal(shape).astype(np.float32)
+    return out
+
+
+def check_compress(what: str, got, want, signal) -> float:
+    """Tie-aware: outside a band of 2e-5 x max |f| around the 90th
+    percentile of the float64 transform's magnitudes, both keep the same
+    coefficients; where both keep one, the values agree within 2e-5 x
+    max |f|. (Inside the band, which side of the threshold a coefficient
+    falls on is roundoff.)"""
+    mag = np.abs(np.fft.rfft(np.asarray(signal, np.float64)))
+    scale = TOL[torch.float32] * mag.max()
+    outside = np.abs(mag - np.percentile(mag, 90)) > scale
+    kg, kw = got != 0, want != 0
+    both = kg & kw
+    err = float(np.abs(got[both] - want[both]).max())
+    if not (np.array_equal(kg[outside], kw[outside]) and err <= scale
+            and np.isfinite(got).all()):
+        raise AssertionError(f"{what}: kept sets differ outside the band, or "
+                             f"max abs err {err:.3e} > {scale:.3e}")
+    log(f"[examples] {what}: kept sets equal outside the band "
+        f"({int((~outside).sum())} coefficients in it), max abs err "
+        f"{err:.3e} (tol {scale:.3e})")
+    return err
+
+
+def check_function(key: str, got: dict, want: dict, args: dict) -> float:
+    """A catalog function's outputs on the card against its run on CPU
+    tensors: dtypes and shapes equal; values by FP32_FUNCTIONS, compress
+    or exactly."""
+    err = 0.0
+    for name, w in want.items():
+        g = got[name].cpu()
+        what = f"{key} {name}"
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what}: {g.dtype}{list(g.shape)} on the "
+                                 f"card, {w.dtype}{list(w.shape)} on the CPU")
+        if key == "py/compress":
+            err = max(err, check_compress(what, g.numpy(), w.numpy(),
+                                          args["signal"].cpu().numpy()))
+        elif key in FP32_FUNCTIONS:
+            err = max(err, compare(what, g, w, torch.float32))
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{what}: {g} on the card, {w} on the CPU")
+    return err
+
+
+def tensor_bytes() -> int:
+    """memory_allocated without the cuBLAS workspaces: each thread that
+    runs a matmul keeps one (32 MiB on Hopper) through the caching
+    allocator, outside any registration. They are freed here and made
+    again at the next matmul."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def catalog_on_card() -> dict:
+    """Part (a): the nine functions in one HydraRuntime on the card, each
+    invoked on example_args and on seeded random inputs (numpy host
+    payloads) and held to its run on CPU tensors with the same params;
+    registration ms, warm invoke p50/p99 over INVOKES calls, the program
+    count, and memory_allocated against the registrations' reserves."""
+    from repro_torch import functions
+    from repro_torch.core import HydraRuntime
+    from repro_torch.core.runtime import registration_budget
+
+    base = tensor_bytes()
+    specs = functions.catalog("cuda")
+    cpu_specs = functions.catalog("cpu")
+    reserves = sum(registration_budget(s)[0] for s in specs.values())
+    rt = HydraRuntime(device="cuda", memory_budget_bytes=GiB)
+    res = {}
+    try:
+        for key, spec in specs.items():
+            t0 = time.perf_counter()
+            rt.register_function(key, spec, tenant=key.split("/")[0])
+            res[key] = {"register_ms": (time.perf_counter() - t0) * 1e3}
+        compiles = rt.exe_cache.stats()["compiles"]
+        if compiles != len(specs):
+            raise AssertionError(f"catalog: {compiles} programs built for "
+                                 f"{len(specs)} functions")
+        rng = np.random.default_rng(0)
+        for key, spec in specs.items():
+            cpu = cpu_specs[key]
+            host = catalog_inputs(key, spec, rng)
+            errs = []
+            for args in (functions.example_args(spec), host):
+                cpu_args = {k: torch.as_tensor(v).cpu()
+                            for k, v in args.items()}
+                with torch.no_grad():
+                    want = cpu.fn(cpu.params, cpu_args)
+                errs.append(check_function(key, rt.invoke(key, args), want,
+                                           cpu_args))
+            args = functions.example_args(spec)
+            for _ in range(5):
+                rt.invoke(key, args)
+            ms = []
+            for _ in range(INVOKES):
+                t0 = time.perf_counter()
+                rt.invoke(key, args)           # ends in a stream sync
+                ms.append((time.perf_counter() - t0) * 1e3)
+            res[key].update(max_abs_err=max(errs),
+                            invoke_ms_p50=float(np.percentile(ms, 50)),
+                            invoke_ms_p99=float(np.percentile(ms, 99)))
+            log(f"[examples] {key}: registered in "
+                f"{res[key]['register_ms']:.3f} ms; warm invoke p50 "
+                f"{res[key]['invoke_ms_p50']:.3f} ms, p99 "
+                f"{res[key]['invoke_ms_p99']:.3f} ms over {INVOKES}; "
+                f"matches its CPU run")
+        with_workspaces = allocated() - base
+        held = tensor_bytes() - base
+        warm = rt.exe_cache.stats()
+        for key, spec in specs.items():
+            rt.register_function("again/" + key, spec, tenant="again")
+        again = rt.exe_cache.stats()
+        res["memory"] = dict(allocated_bytes=held, reserves_bytes=reserves,
+                             cublas_workspace_bytes=with_workspaces - held,
+                             budget_used=rt.budget.used)
+        res["exe_cache"] = dict(after_register=compiles,
+                                after_invokes=warm["compiles"],
+                                after_register_again=again["compiles"],
+                                hits=again["hits"])
+    finally:
+        rt.shutdown()
+    log(f"[examples] catalog: {compiles} programs after registration, "
+        f"{warm['compiles']} after {len(specs) * (INVOKES + 7)} invokes, "
+        f"{again['compiles']} after registering the nine again "
+        f"({again['hits']} hits); memory_allocated {held / 2**20:.3f} MiB "
+        f"(params, example arguments, arenas) against "
+        f"{reserves / 2**20:.3f} MiB of registration reserves, and "
+        f"{(with_workspaces - held) / 2**20:.3f} MiB of cuBLAS workspaces "
+        f"the runtime's worker threads made, outside any reserve")
+    if not (warm["compiles"] == again["compiles"] == compiles
+            and again["hits"] == len(specs)):
+        raise AssertionError(f"catalog: programs {res['exe_cache']}")
+    if not 0 < held <= reserves:
+        raise AssertionError(f"catalog: memory_allocated {held} outside "
+                             f"(0, {reserves}] of the reserves")
+    return res
+
+
+def quickstart_full_width() -> dict:
+    """Part (b): torch_quickstart's flow with full-width qwen2.5-3b (the
+    port's seeded bf16 init, max_seq 64, slots 1) beside the nine
+    functions in one runtime; its 8 tokens against the plain path's on
+    the same weights (on a differing token, the first logits within 5e-2
+    relative RMS). The launch counters span the flow's run."""
+    from repro_torch import functions
+
+    quickstart = load_example("torch_quickstart.py")
+    cfg, prog, params, res = full_width("qwen2.5-3b")
+    budget = max(8 * GiB, res["param_bytes"] + GiB)
+    beside = functions.catalog("cuda")
+    counters = zero_launches()              # this path's run starts here
+    torch.cuda.reset_peak_memory_stats()
+    base = allocated()
+    out = quickstart.run("cuda", cfg, budget, params, beside=beside)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = check_launches("examples", counters, ATTENTION)
+    log("[examples] the same flow on the plain path:")
+    with plain_path():
+        plain = quickstart.run("cuda", cfg, budget, params)
+    stats = out["stats"]
+    res.update(tokens=out["tokens"], plain_tokens=plain["tokens"],
+               tokens_equal=out["tokens"] == plain["tokens"],
+               launches=launches, budget_bytes=budget,
+               budget_used=stats["budget_used"],
+               functions=stats["functions"], exe_cache=stats["exe_cache"],
+               arena=stats["arena"], lm_register_s=out["register_s"],
+               generate_s=out["generate_s"], allocated_bytes=base,
+               max_allocated_bytes=peak)
+    if len(out["tokens"]) != 8 or \
+            not all(0 <= t < cfg.vocab_size for t in out["tokens"]):
+        raise AssertionError(f"quickstart: tokens {out['tokens']}")
+    if stats["functions"] != len(beside) + 3 or \
+            stats["budget_used"] < res["param_bytes"]:
+        raise AssertionError(f"quickstart: {stats['functions']} functions, "
+                             f"{stats['budget_used']} bytes reserved")
+    if not res["tokens_equal"]:
+        (pre_k, pre_r), _, _ = first_logits(prog, params, list(range(12)))
+        res["first_logits"] = check_rel_rms("examples quickstart prefill",
+                                            pre_k, pre_r)
+    log(f"[examples] quickstart at full width beside the nine: tokens "
+        f"{out['tokens']} (plain path {plain['tokens']}); LM registered in "
+        f"{out['register_s'] * 1e3:.1f} ms, 8 tokens generated in "
+        f"{out['generate_s'] * 1e3:.1f} ms; {stats['functions']} functions, "
+        f"{stats['budget_used'] / 1e9:.3f} GB reserved of "
+        f"{budget / 1e9:.3f}; memory_allocated {base / 1e9:.3f} GB before, "
+        f"max {peak / 1e9:.3f} GB")
+    del params, prog
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_example(name: str, tmp: str) -> dict:
+    """Part (c): ``python examples/<name>`` in a child process on the
+    card, with its own time limit; it must exit 0 and print its lines."""
+    limit, expect = EXAMPLES[name]
+    tmpdir = os.path.join(tmp, "examples", name[:-3])
+    os.makedirs(tmpdir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               TMPDIR=tmpdir)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "examples",
+                                                       name)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=limit, env=env)
+    wall = time.perf_counter() - t0
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"{name[:-3]}.log"),
+              "w") as f:
+        f.write(out.stdout + "\n--- stderr ---\n" + out.stderr)
+    text = out.stdout
+    if out.returncode != 0:
+        raise AssertionError(f"{name} exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    missing = [line for line in expect if line not in text]
+    if missing:
+        raise AssertionError(f"{name}: no {missing} in its output")
+    r = {"wall_s": wall}
+    if name == "torch_gateway_replay.py" and "-> FAIL" in text:
+        raise AssertionError(f"{name}: a gate failed")
+    if name == "torch_serve_multitenant.py":
+        legs = re.findall(r"\[serve\] 24 requests, (\d+) tokens", text)
+        if len(legs) != 2:
+            raise AssertionError(f"{name}: {len(legs)} legs served")
+        r["tokens"] = [int(t) for t in legs]
+    if name == "torch_train_lm.py":
+        m = re.search(r"first loss (\S+) last loss (\S+);", text)
+        r["losses"] = [float(m.group(1)), float(m.group(2))]
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"{name}: losses {r['losses']}")
+    for line in text.splitlines()[-4:]:
+        log(f"[examples {name}] {line[:200]}")
+    log(f"[examples] {name} exited 0 in {wall:.1f}s")
+    return r
+
+
+def phase_examples(tmp: str) -> dict:
+    """Phase 9 (module docstring)."""
+    res = {}
+    t0 = time.perf_counter()
+    res["catalog"] = catalog_on_card()
+    res["catalog_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["quickstart"] = quickstart_full_width()
+    res["quickstart_s"] = time.perf_counter() - t0
+    res["launches"] = res["quickstart"]["launches"]
+    res["scripts"] = {name: run_example(name, tmp) for name in EXAMPLES}
+    return res
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:19"),
@@ -3158,6 +3489,10 @@ def main() -> int:
         t0 = time.perf_counter()
         REPORT["gateway"] = phase_gateway(snap_root)
         log(f"[gateway] phase done in {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        REPORT["examples"] = phase_examples(snap_root)
+        log(f"[examples] phase done in {time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(snap_root, ignore_errors=True)
 
@@ -3172,7 +3507,7 @@ def main() -> int:
         r = REPORT["kernels"][name]
         by_path = {arch: p["launches"][name]
                    for arch, p in REPORT["paths"].items()}
-        for path in ("mesh", "platform", "cluster", "gateway"):
+        for path in ("mesh", "platform", "cluster", "gateway", "examples"):
             by_path[path] = REPORT[path]["launches"][name]
         for run in TRAIN_PATHS:
             by_path[f"train {run}"] = REPORT["train"][run]["launches"][name]

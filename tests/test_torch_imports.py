@@ -1,7 +1,8 @@
-"""repro_torch stands alone: no file of the port, nor chip_smoke.py or
-chip_ab.py, imports ``jax`` or anything of the reference package
-``repro``, and importing every module of the port leaves ``jax``
-unloaded."""
+"""repro_torch stands alone: no file of the port, nor chip_smoke.py,
+chip_ab.py, chip_mesh.py or the port's examples (``examples/torch_*.py``),
+imports ``jax``, anything of the reference package ``repro`` or
+``benchmarks`` (whose modules import ``repro``), and importing every
+module of the port leaves ``jax`` unloaded."""
 import ast
 import json
 import os
@@ -16,8 +17,10 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def port_files() -> list:
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "chip_ab.py"]
+    return (sorted(PORT.rglob("*.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+               ROOT / "chip_mesh.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def imported_modules(path: Path) -> list:
@@ -35,6 +38,10 @@ def test_port_has_files():
     files = port_files()
     assert len(files) > 30
     assert (PORT / "kernels" / "csrc" / "rmsnorm.cu").exists()
+    examples = [p.name for p in files if p.parent.name == "examples"]
+    assert examples == ["torch_gateway_replay.py", "torch_quickstart.py",
+                        "torch_serve_multitenant.py", "torch_trace_replay.py",
+                        "torch_train_lm.py"]
 
 
 @pytest.mark.parametrize("path", port_files(),
@@ -42,7 +49,7 @@ def test_port_has_files():
 def test_no_jax_or_reference_imports(path):
     for mod in imported_modules(path):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "repro"), \
+        assert root not in ("jax", "jaxlib", "repro", "benchmarks"), \
             f"{path.relative_to(ROOT)} imports {mod}"
 
 
@@ -69,5 +76,6 @@ print(json.dumps({"mods": mods,
     assert res["jax"] == [] and res["repro"] == []
     for mod in ("repro_torch.core.runtime", "repro_torch.kernels.ops",
                 "repro_torch.launch.serve", "repro_torch.models.convert",
-                "repro_torch.gateway", "repro_torch.gateway.validate"):
+                "repro_torch.gateway", "repro_torch.gateway.validate",
+                "repro_torch.functions"):
         assert mod in res["mods"]
