@@ -1,0 +1,47 @@
+"""The frozen counts against numbers worked by hand."""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import pytest
+
+from portbench.counts import model_flops, peaks, ssd_scan
+
+HERE = Path(__file__).parent
+MAMBA = json.loads((HERE / "configs/mamba2-780m.json").read_text())
+# one Mamba2 layer of mamba2-780m: in_proj (z, xBC, dt), conv taps, out_proj
+LAYER = 1536 * (2 * 3072 + 2 * 128 + 48) + 4 * 3328 + 3072 * 1536
+
+
+def test_ssd_scan():
+    # S 300 in chunks of 256 and 44 rows: 256*257/2 + 44*45/2 pairs
+    nbytes, flops = ssd_scan.cost(1, 300, 2, 4, 8, 256)
+    assert nbytes == (2 * 300 * 2 * 4 * 2 + 300 * 2 * 4 + 2 * 4
+                      + 2 * 300 * 8 * 2 + 2 * 4 * 8 * 4)
+    pairs = 32896 + 990
+    assert flops == 2 * pairs * 8 + 2 * 2 * pairs * 4 + 4 * 2 * 300 * 8 * 4
+
+
+def test_peaks():
+    assert peaks.bound_s(3.35e12, 1.0) == pytest.approx(1.0)
+    assert peaks.bound_s(1.0, 989e12) == pytest.approx(1.0)
+
+
+def test_model_flops():
+    assert model_flops.applied_params(MAMBA) == 48 * LAYER
+    assert model_flops.head_params(MAMBA) == 1536 * 50288
+    d = model_flops.decode(MAMBA, 1000)
+    assert d == 2.0 * (48 * LAYER + 1536 * 50288) + 4.0 * 48 * 64 * 128 * 48
+    assert model_flops.decode(MAMBA, 4000) == d
+
+
+@pytest.mark.parametrize("S", [100, 256, 2500])
+def test_prefill_flops(S):
+    # the scan's products in chunks of 256 (the last one short), 48 heads
+    # of 64, state 128, in each of the 48 layers
+    rows = [min(256, S - c) for c in range(0, S, 256)]
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    scan = 2.0 * pairs * 128 + 2.0 * 48 * pairs * 64 + 4.0 * 48 * S * 128 * 64
+    assert model_flops.prefill(MAMBA, S) == pytest.approx(
+        2.0 * 48 * LAYER * S + 2.0 * 1536 * 50288 + 48 * scan)
