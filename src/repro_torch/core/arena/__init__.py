@@ -71,7 +71,6 @@ class Arena:
     buffers: Any                       # tree of device tensors
     nbytes: int
     owner: Optional[str] = None        # fid of the last claimant
-    created_at: float = field(default_factory=time.monotonic)
     last_used: float = field(default_factory=time.monotonic)
     uses: int = 0
 

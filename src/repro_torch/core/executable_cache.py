@@ -33,7 +33,7 @@ import json
 import os
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from repro_torch.kernels import _build
@@ -45,7 +45,6 @@ class CacheEntry:
     compiled: Any
     compile_s: float
     hits: int = 0
-    created_at: float = field(default_factory=time.monotonic)
 
 
 class ExecutableCache:

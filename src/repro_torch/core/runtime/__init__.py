@@ -35,11 +35,17 @@ from repro_torch.core.executable_cache import ExecutableCache
 from repro_torch.core.metrics import Metrics
 from repro_torch.core.registry import (CallableSpec, Function,
                                        FunctionRegistry, LMSpec)
-from repro_torch.core.tracing import NULL_TRACE, trace_now
+from repro_torch.core.tracing import NULL_TRACE, step_span, trace_now
 from repro_torch.device import resolve_device
-from repro_torch.models.programs import ModelProgram
 
 GB = 1 << 30
+
+
+def _model_program(cfg):
+    # imported here: the models import core/tracing, whose package
+    # imports this module, so the models must not be imported with it
+    from repro_torch.models.programs import ModelProgram
+    return ModelProgram(cfg)
 
 
 def registration_budget(spec, prog=None) -> tuple:
@@ -50,7 +56,7 @@ def registration_budget(spec, prog=None) -> tuple:
                    + spec.arena_bytes)
         return reserve, spec.arena_bytes
     if isinstance(spec, LMSpec):
-        prog = prog or ModelProgram(spec.cfg)
+        prog = prog or _model_program(spec.cfg)
         cache = prog.cache_bytes(spec.slots, spec.max_seq)
         return tree_bytes(spec.params) + cache, cache
     raise TypeError(type(spec))
@@ -263,7 +269,7 @@ class HydraRuntime:
                             f"embeddings, and the runtime's programs feed "
                             f"tokens")
         self._check_device(spec.params, "LMSpec params")
-        prog = ModelProgram(spec.cfg)
+        prog = _model_program(spec.cfg)
         B, S = spec.slots, spec.max_seq
         cache_specs = prog.cache_specs(B, S)
         budget = mem_budget or registration_budget(spec, prog)[0]
@@ -299,7 +305,7 @@ class HydraRuntime:
         """Exact-length prefill program, built + cached on first use of
         this prompt length (production would use length buckets)."""
         spec: LMSpec = func.spec
-        prog: ModelProgram = func.prog
+        prog = func.prog
         key = spec.family_key + ("prefill", prompt_len)
         if prompt_len > spec.max_seq:
             raise ValueError(f"prompt of {prompt_len} tokens exceeds "
@@ -315,19 +321,23 @@ class HydraRuntime:
                 sequence axis (K/V, (L, S, Hkv, hd)) gets the prompt's
                 rows and zeros up to max_seq; length = prompt_len."""
                 with torch.no_grad():
-                    logits, cache = prog.prefill(params, {"tokens": tokens})
-                    for k, src in cache.items():
-                        dst = arena_cache[k]
-                        if k == "length":
-                            dst[slot] = prompt_len
-                            continue
-                        row, src_row = dst[:, slot], src[:, 0]
-                        if src_row.shape == row.shape:
-                            row.copy_(src_row)
-                        else:
-                            row[:, :prompt_len] = src_row
-                            row[:, prompt_len:] = 0
-                    return _greedy(logits), arena_cache
+                    with step_span("prefill.forward"):
+                        logits, cache = prog.prefill(params,
+                                                     {"tokens": tokens})
+                        tok = _greedy(logits)
+                    with step_span("prefill.insert"):
+                        for k, src in cache.items():
+                            dst = arena_cache[k]
+                            if k == "length":
+                                dst[slot] = prompt_len
+                                continue
+                            row, src_row = dst[:, slot], src[:, 0]
+                            if src_row.shape == row.shape:
+                                row.copy_(src_row)
+                            else:
+                                row[:, :prompt_len] = src_row
+                                row[:, prompt_len:] = 0
+                    return tok, arena_cache
             return prefill_insert
 
         return self.exe_cache.get_or_compile(key, build, fid=func.fid).compiled

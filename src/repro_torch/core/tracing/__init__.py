@@ -19,6 +19,37 @@ against the simulator's cost model:
     compute        compiled executable dispatch + block_until_ready
     body           emulated function body (trace duration, compressed)
 
+The LM serving path (``ContinuousBatcher``) carries the same
+``RequestTrace``: ``submit(prompt, max_new, ctx)`` takes the one
+``Tracer.start_request`` hands out, and the batcher records that
+request's own phases and the time of each token it receives (when the
+readback that gave it returns; the first is its first-token time):
+
+    queue_wait     submit -> the start of its own admission (reused name)
+    prefill        its own prefill program, slab insert, first readback
+    decode         the decode part of each step while it is in flight
+    prefill_stall  other requests' admissions inside the steps it waits
+                   in for its next token (a long prompt delays the batch)
+
+Beside the request tracks the batcher records the **step track**: one
+``step`` span per ``step()``, its children (``admit`` per admission with
+``prefill.forward``, ``prefill.insert``, ``readback`` and
+``bookkeeping`` inside; ``decode.forward``, ``readback``,
+``bookkeeping``) and, inside the forward spans, the model's (``embed``,
+``norm``, ``mixer``, ``ffn``, ``lm_head``, ``cache_pack``) and one
+``kernel`` span per ``kernels/ops`` entry. Those layers take no
+context: ``step_span`` reads the step this thread is running from a
+per-thread holder that the batcher sets around ``step()``, so another
+thread (another runtime's worker) records nothing into it. Every name
+is in the closed ``STEP_SPANS`` vocabulary below; PERF.md §3 names
+each span and counter with the metric it feeds. A batcher given a
+``Tracer`` records into it. Until the benchmark's serving harness passes
+one, a batcher given none records, while a torch profiler records on
+its thread, into the process's profile tracer
+(``profile_tracer``/``take_profile_tracer``), which the benchmark's
+readers take after a traced run; that stopgap goes when the harness
+passes a ``Tracer`` (PERF.md §7).
+
 Phases are disjoint intervals inside the request window, so they admit
 a conservation invariant: span lengths plus the uncovered gaps
 (``unattributed``) equal end-to-end latency exactly, modulo measured
@@ -30,10 +61,12 @@ one clock.
 Three consumers:
 
   * **Chrome trace export** (``export_chrome``): one Perfetto-loadable
-    JSON (trace-event "X" entries, one track per request) written by
-    ``serve --gateway --trace-out``; ``python -m repro_torch.core.tracing
-    --check spans.json`` re-validates the schema and the conservation
-    invariant (CI trace-smoke).
+    JSON (trace-event "X" entries, one track per request, and the step
+    track when the tracer holds one) written by ``serve --trace-out``
+    (a gateway replay, or the batchers' LM requests and steps);
+    ``python -m repro_torch.core.tracing --check spans.json``
+    re-validates the schema, the conservation invariant and the step
+    track's nesting (CI trace-smoke).
   * **Aggregation** (``summary``/``attribution``): bounded per-phase
     histograms feed the replay extras, the ``CalibrationProbe``
     payload, the ``BENCH_trace.json`` gateway leg, and ``validate
@@ -49,6 +82,8 @@ the same sampling decisions. The disabled path is near-zero: an
 unsampled request carries the shared ``NULL_TRACE`` singleton whose
 span methods are no-ops (no allocation, no locking, no clock reads) —
 ``benchmarks/bench_hotpath.py`` measures and budget-gates exactly that.
+A step with no tracer likewise hands out the shared ``_NULL_SPAN`` at
+every ``step_span`` site: one per-thread attribute read, nothing more.
 
 This module must stay pure on the hot path (HL002): span bookkeeping
 is clock reads + list appends; only the flight-recorder dump — an
@@ -63,6 +98,7 @@ module path mirrors ``repro.core.tracing``.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import math
 import os
@@ -76,7 +112,9 @@ from typing import Any, Callable, Optional
 from repro_torch.core.metrics import Histogram
 
 # the span-name registry (hydralint HL008 validates every tracer.span()
-# call site against this tuple; keep docs/observability.md in sync)
+# call site against the reference's tuple; the LM path's three names
+# below are the port's own, held to this one by
+# tests/test_torch_lm_tracing.py; PERF.md §3 lists them)
 PHASES = (
     "admission",
     "queue_wait",
@@ -87,7 +125,25 @@ PHASES = (
     "dispatch",
     "compute",
     "body",
+    # the LM serving path's own request phases (ContinuousBatcher)
+    "prefill",
+    "decode",
+    "prefill_stall",
 )
+# the step track's vocabulary (tests/test_torch_lm_tracing.py holds
+# every step_span() and StepTrace.child() call site to STEP_SPANS): the
+# step's children, then the model's and kernels' spans, which lie
+# inside a forward span
+STEP_CHILDREN = ("admit", "prefill.forward", "prefill.insert", "readback",
+                 "decode.forward", "bookkeeping")
+FORWARD_SPANS = ("prefill.forward", "decode.forward")
+MODEL_SPANS = ("embed", "norm", "mixer", "ffn", "lm_head", "cache_pack",
+               "kernel")
+STEP_SPANS = ("step",) + STEP_CHILDREN + MODEL_SPANS
+# the steps a tracer keeps (the newest): ~700 spans each on a 48-layer
+# model at two admissions a step; a 50 s window of the benchmark holds
+# ~250 steps
+MAX_STEPS = 1024
 # computed, never emitted by a span call: the uncovered remainder of the
 # request window (and the arena_acquire claim-kind splits)
 UNATTRIBUTED = "unattributed"
@@ -143,6 +199,9 @@ class _NullTrace:
         return _NULL_SPAN
 
     def add_span(self, name: str, t0: float, t1: float, **attrs) -> None:
+        pass
+
+    def add_token(self, t: float) -> None:
         pass
 
     def finish(self, status: str = "ok") -> None:
@@ -238,7 +297,8 @@ class RequestTrace:
     the (locked) tracer exactly once.
     """
     __slots__ = ("tracer", "trace_id", "fid", "tenant", "t0", "spans",
-                 "status", "total_s", "breakdown", "_finished")
+                 "token_times", "status", "total_s", "breakdown",
+                 "_finished")
 
     def __init__(self, tracer: "Tracer", trace_id: int, fid: str,
                  tenant: Optional[str]):
@@ -248,6 +308,7 @@ class RequestTrace:
         self.tenant = tenant
         self.t0 = trace_now()
         self.spans: list = []          # (name, t0, t1, attrs|None)
+        self.token_times: list = []    # LM path: when each token arrived
         self.status = "open"
         self.total_s = 0.0
         self.breakdown: Optional[PhaseBreakdown] = None
@@ -265,6 +326,11 @@ class RequestTrace:
 
     def _append(self, name, t0, t1, attrs) -> None:
         self.spans.append((name, t0, t1, attrs))
+
+    def add_token(self, t: float) -> None:
+        """The time a token of this request reached the host (the LM
+        path: when the readback that gave it returned)."""
+        self.token_times.append(t)
 
     def finish(self, status: str = "ok") -> None:
         if self._finished:
@@ -289,7 +355,80 @@ class RequestTrace:
                       for n, t0, t1, a in self.spans],
             "phases": dict(bd.phases) if bd else {},
             "overlap_s": bd.overlap_s if bd else 0.0,
+            **({"token_times": list(self.token_times)}
+               if self.token_times else {}),
         }
+
+
+# ---------------------------------------------------------------------------
+# The step track (ContinuousBatcher.step and the layers below it)
+# ---------------------------------------------------------------------------
+_LOCAL = threading.local()
+
+
+class StepTrace:
+    """The spans of one ``ContinuousBatcher.step()``: the step track.
+
+    Used as a context manager around the step, it is this thread's
+    current step, which ``step_span`` reads, and on exit it publishes
+    its spans to ``tracer`` (none: the spans only time the step's
+    request tracks and are dropped). One thread appends, so no lock
+    until the publish."""
+    __slots__ = ("tracer", "step", "spans", "_prev")
+
+    def __init__(self, tracer: Optional["Tracer"], step: int):
+        self.tracer = tracer
+        self.step = step
+        self.spans: list = []          # (name, t0, t1, attrs|None)
+        self._prev = None
+
+    def child(self, name: str, what: Optional[str] = None) -> Span:
+        sp = Span(self, name)
+        if what is not None:
+            sp.attrs = {"name": what}
+        return sp
+
+    def _append(self, name, t0, t1, attrs) -> None:
+        self.spans.append((name, t0, t1, attrs))
+
+    def __enter__(self) -> "StepTrace":
+        self._prev = getattr(_LOCAL, "step", None)
+        _LOCAL.step = self
+        return self
+
+    def __exit__(self, *exc):
+        _LOCAL.step = self._prev
+        self._prev = None
+        if self.tracer is not None:
+            self.tracer._on_step(self.step, self.spans)
+        return False
+
+
+class _NullStepTrace:
+    """A step nothing records: every span is the shared no-op one."""
+    __slots__ = ()
+    tracer = None
+
+    def child(self, name: str, what: Optional[str] = None):
+        return _NULL_SPAN
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL_STEP = _NullStepTrace()
+
+
+def step_span(name: str, what: Optional[str] = None):
+    """A span of the step this thread runs (``what`` becomes its ``name``
+    attribute: a kernel's), or the shared no-op span when none records."""
+    st = getattr(_LOCAL, "step", None)
+    if st is None:
+        return _NULL_SPAN
+    return st.child(name, what)
 
 
 class FlightRecorder:
@@ -363,6 +502,7 @@ class Tracer:
         self._dropped = 0
         self._anomalies: dict = {}
         self._done: deque = deque(maxlen=max_traces)
+        self._steps: deque = deque(maxlen=MAX_STEPS)   # (step, spans)
         self._hist_max = hist_max_samples
         self._phase_hists: dict = {k: Histogram(max_samples=hist_max_samples)
                                    for k in SUMMARY_KEYS}
@@ -419,6 +559,10 @@ class Tracer:
         if fl is not None:
             fl.record(d)
 
+    def _on_step(self, step: int, spans: list) -> None:
+        with self._lock:
+            self._steps.append((step, spans))
+
     # -- anomalies ---------------------------------------------------------
     def set_metrics_provider(self, cb: Callable[[], dict]) -> None:
         """Callback supplying the metrics snapshot embedded in flight
@@ -450,6 +594,12 @@ class Tracer:
     def traces(self) -> list:
         with self._lock:
             return list(self._done)
+
+    def steps(self) -> list:
+        """The step track: (step id, [(name, t0, t1, attrs|None)]) per
+        recorded step, oldest first (the last ``MAX_STEPS`` of them)."""
+        with self._lock:
+            return list(self._steps)
 
     def summary(self) -> dict:
         """Fixed-vocabulary aggregate: counts plus per-phase wall-ms
@@ -540,32 +690,66 @@ def _attribute_group(traces: list, base: dict) -> Optional[dict]:
     return {**base, "n": n, "phase_mean_ms": means, "dominant": dominant}
 
 
+class _ProfileTracer:
+    """The process's tracer for profiled stretches: what a batcher given
+    no tracer records into while a torch profiler records on its thread,
+    kept until a reader takes it. A stopgap for the benchmark, whose
+    serving harness passes no ``Tracer`` yet: it goes, with the
+    scheduler's ``_profiled`` branches, once the harness passes one."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._tracer: Optional[Tracer] = None
+
+    def get(self) -> Tracer:
+        with self._lock:
+            if self._tracer is None:
+                self._tracer = Tracer()
+            return self._tracer
+
+    def take(self) -> Optional[Tracer]:
+        with self._lock:
+            tracer, self._tracer = self._tracer, None
+            return tracer
+
+
+_PROFILED = _ProfileTracer()
+profile_tracer = _PROFILED.get
+take_profile_tracer = _PROFILED.take
+
+
 # ---------------------------------------------------------------------------
 # Chrome trace-event export + validation (Perfetto-loadable)
 # ---------------------------------------------------------------------------
 
-def chrome_trace(traces: list, meta: Optional[dict] = None) -> dict:
+def chrome_trace(traces: list, meta: Optional[dict] = None,
+                 steps: list = ()) -> dict:
     """Chrome trace-event JSON from ``Tracer.traces()`` output: one
     complete ("X") event per request on its own track (tid =
     trace_id), one per span, and explicit ``unattributed`` events for
     the uncovered gaps — so the events of a track sum to the request's
     end-to-end duration (the conservation invariant ``--check``
-    re-verifies)."""
+    re-verifies). ``steps`` (``Tracer.steps()``) adds the step track:
+    its spans on a process of their own (pid 2), category ``step``,
+    each with its step id."""
     events = []
-    t_base = min((t["t0"] for t in traces), default=0.0)
+    t_base = min([t["t0"] for t in traces]
+                 + [sp[1] for _, sps in steps for sp in sps], default=0.0)
 
     def us(t: float) -> float:
         return (t - t_base) * 1e6
 
     for t in traces:
         tid = t["trace_id"]
+        args = {"trace_id": tid, "fid": t["fid"], "tenant": t["tenant"],
+                "status": t["status"], "overlap_ms": t["overlap_s"] * 1e3}
+        if t.get("token_times"):
+            args["token_ms"] = [(x - t["t0"]) * 1e3
+                                for x in t["token_times"]]
         events.append({
             "name": "request", "cat": "request", "ph": "X",
             "ts": us(t["t0"]), "dur": t["total_s"] * 1e6,
-            "pid": 1, "tid": tid,
-            "args": {"trace_id": tid, "fid": t["fid"],
-                     "tenant": t["tenant"], "status": t["status"],
-                     "overlap_ms": t["overlap_s"] * 1e3},
+            "pid": 1, "tid": tid, "args": args,
         })
         intervals = []
         for sp in t["spans"]:
@@ -591,21 +775,55 @@ def chrome_trace(traces: list, meta: Optional[dict] = None) -> dict:
             events.append({"name": UNATTRIBUTED, "cat": "phase", "ph": "X",
                            "ts": us(cur), "dur": (t_end - cur) * 1e6,
                            "pid": 1, "tid": tid, "args": {}})
+    for step, sps in steps:
+        for name, s0, s1, attrs in sps:
+            events.append({"name": name, "cat": "step", "ph": "X",
+                           "ts": us(s0), "dur": max(0.0, s1 - s0) * 1e6,
+                           "pid": 2, "tid": 0,
+                           "args": {**(attrs or {}), "step": step}})
     return {
         "traceEvents": events,
         "displayTimeUnit": "ms",
         "otherData": {"schema": CHROME_SCHEMA, "phases": list(PHASES),
-                      **(meta or {})},
+                      "step_spans": list(STEP_SPANS), **(meta or {})},
     }
 
 
 def export_chrome(tracer: Tracer, path: str,
                   meta: Optional[dict] = None) -> dict:
-    doc = chrome_trace(tracer.traces(), meta=meta)
+    doc = chrome_trace(tracer.traces(), meta=meta, steps=tracer.steps())
     with open(path, "w") as f:
         json.dump(doc, f)
         f.write("\n")
     return doc
+
+
+def _step_track_errors(evs: list) -> list:
+    """Nesting of the step track: every span inside a ``step``, every
+    model or kernel span inside a forward span (one thread, one clock:
+    exact up to the microsecond rounding of the export)."""
+    eps = 1.0
+
+    def enclosures(names):
+        ivs = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs
+                     if e["name"] in names)
+        return [a for a, _ in ivs], ivs
+
+    def inside(encl, e) -> bool:
+        starts, ivs = encl
+        i = bisect.bisect_right(starts, e["ts"] + eps) - 1
+        return i >= 0 and ivs[i][1] >= e["ts"] + e["dur"] - eps
+
+    steps, fwd = enclosures(("step",)), enclosures(FORWARD_SPANS)
+    errors = []
+    for e in evs:
+        if e["name"] != "step" and not inside(steps, e):
+            errors.append(f"step track: {e['name']} at {e['ts']:.0f}us "
+                          f"lies in no step span")
+        elif e["name"] in MODEL_SPANS and not inside(fwd, e):
+            errors.append(f"step track: {e['name']} at {e['ts']:.0f}us "
+                          f"lies in no forward span")
+    return errors
 
 
 def validate_chrome(doc: Any, epsilon_ms: float = 2.0) -> list:
@@ -620,6 +838,7 @@ def validate_chrome(doc: Any, epsilon_ms: float = 2.0) -> list:
         return ["not a trace-event document (traceEvents list missing)"]
     known = set(PHASES) | {UNATTRIBUTED, "request"}
     by_tid: dict = {}
+    step_evs: list = []
     for i, ev in enumerate(doc["traceEvents"]):
         if not isinstance(ev, dict):
             errors.append(f"event {i}: not an object")
@@ -637,6 +856,14 @@ def validate_chrome(doc: Any, epsilon_ms: float = 2.0) -> list:
                 or not math.isfinite(ev.get("ts", 0.0)) \
                 or not math.isfinite(ev.get("dur", 0.0)):
             errors.append(f"event {i} ({ev.get('name')}): bad ts/dur")
+            continue
+        if ev.get("cat") == "step":
+            if ev.get("name") in STEP_SPANS:
+                step_evs.append(ev)
+            else:
+                errors.append(f"event {i}: unknown step span "
+                              f"{ev.get('name')!r} (registry: "
+                              f"{list(STEP_SPANS)})")
             continue
         if ev.get("name") not in known:
             errors.append(f"event {i}: unknown span name "
@@ -665,6 +892,7 @@ def validate_chrome(doc: Any, epsilon_ms: float = 2.0) -> list:
                     or e["ts"] + e["dur"] > req["ts"] + total_us + eps_us:
                 errors.append(f"track {tid}: span {e['name']} outside "
                               f"the request window")
+    errors.extend(_step_track_errors(step_evs))
     if not by_tid:
         errors.append("no request tracks (empty trace)")
     return errors
@@ -673,9 +901,9 @@ def validate_chrome(doc: Any, epsilon_ms: float = 2.0) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Validate an exported Chrome trace-event span file "
-                    "(serve --gateway --trace-out): Perfetto-loadable "
-                    "schema plus the per-request phase-conservation "
-                    "invariant. Exits 1 on any violation.")
+                    "(serve --trace-out): Perfetto-loadable schema, the "
+                    "per-request phase-conservation invariant and the "
+                    "step track's nesting. Exits 1 on any violation.")
     ap.add_argument("--check", metavar="PATH", required=True,
                     help="spans JSON to validate (Chrome trace-event "
                          "format as written by --trace-out)")
@@ -694,9 +922,12 @@ def main(argv=None) -> int:
         print(f"# FAIL {e}", file=sys.stderr)
     if errors:
         return 1
-    n = len({ev.get("tid") for ev in doc["traceEvents"]})
-    print(f"tracing: {args.check} OK — {n} request tracks, "
-          f"{len(doc['traceEvents'])} events, conservation within "
+    n = len({ev.get("tid") for ev in doc["traceEvents"]
+             if ev.get("cat") != "step"})
+    n_steps = sum(ev.get("cat") == "step" and ev.get("name") == "step"
+                  for ev in doc["traceEvents"])
+    print(f"tracing: {args.check} OK — {n} request tracks, {n_steps} "
+          f"steps, {len(doc['traceEvents'])} events, conservation within "
           f"{args.epsilon_ms:g}ms")
     return 0
 

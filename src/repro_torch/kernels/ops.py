@@ -31,6 +31,10 @@ there, so no kernel output silently lacks a gradient (its output is
 written by a ctypes call and carries no ``grad_fn``). The serving path
 runs under ``no_grad``/``inference_mode`` and costs one flag read more.
 The CPU route is the plain version under ordinary autograd.
+
+Each entry point is one ``kernel`` span of the serving step track
+(``core/tracing.step_span``), its ``name`` attribute the entry's name;
+with no step recording on the thread it is the shared no-op span.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import os
 
 import torch
 
+from repro_torch.core.tracing import step_span
 from repro_torch.device import is_dtensor
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -144,75 +149,84 @@ def _kv_for_sharded_heads(q, k, v, head_dim: int):
 
 
 def rmsnorm(x, w, eps: float = 1e-5):
-    if is_dtensor(x):
-        rows = tuple(range(x.ndim - 1))
-        return _on_shards(lambda a, b: rmsnorm(a, b, eps), (x, w),
-                          {f"row{d}": (d, None) for d in rows},
-                          [{f"row{d}": d for d in rows}])
-    if _use_kernel(x):
-        if _needs_grad(x, w):
-            return _rmsnorm.RMSNormFn.apply(x, w, eps)
-        return _rmsnorm.rmsnorm(x, w, eps=eps)
-    return _ref.rmsnorm_ref(x, w, eps)
+    with step_span("kernel", "rmsnorm"):
+        if is_dtensor(x):
+            rows = tuple(range(x.ndim - 1))
+            return _on_shards(lambda a, b: rmsnorm(a, b, eps), (x, w),
+                              {f"row{d}": (d, None) for d in rows},
+                              [{f"row{d}": d for d in rows}])
+        if _use_kernel(x):
+            if _needs_grad(x, w):
+                return _rmsnorm.RMSNormFn.apply(x, w, eps)
+            return _rmsnorm.rmsnorm(x, w, eps=eps)
+        return _ref.rmsnorm_ref(x, w, eps)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
-    if is_dtensor(q):
-        k, v = _kv_for_sharded_heads(q, k, v, 2)
-        return _on_shards(
-            lambda a, b, c: flash_attention(a, b, c, causal=causal,
-                                            window=window, scale=scale),
-            (q, k, v), {"batch": (0, 0, 0), "heads": (2, 2, 2)},
-            [{"batch": 0, "heads": 2}])
-    if _use_kernel(q):
-        if _needs_grad(q, k, v):
-            return _flash.FlashAttentionFn.apply(q, k, v, causal, window,
-                                                 scale)
-        return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                      scale=scale)
-    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    scale=scale)
+    with step_span("kernel", "flash_attention"):
+        if is_dtensor(q):
+            k, v = _kv_for_sharded_heads(q, k, v, 2)
+            return _on_shards(
+                lambda a, b, c: flash_attention(a, b, c, causal=causal,
+                                                window=window, scale=scale),
+                (q, k, v), {"batch": (0, 0, 0), "heads": (2, 2, 2)},
+                [{"batch": 0, "heads": 2}])
+        if _use_kernel(q):
+            if _needs_grad(q, k, v):
+                return _flash.FlashAttentionFn.apply(q, k, v, causal, window,
+                                                     scale)
+            return _flash.flash_attention(q, k, v, causal=causal,
+                                          window=window, scale=scale)
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window=None,
                      scale=None):
-    if is_dtensor(q):
-        k_cache, v_cache = _kv_for_sharded_heads(q, k_cache, v_cache, 1)
-        return _on_shards(
-            lambda a, b, c, n: decode_attention(a, b, c, n, window=window,
-                                                scale=scale),
-            (q, k_cache, v_cache, lengths),
-            {"batch": (0, 0, 0, 0), "heads": (1, 2, 2, None)},
-            [{"batch": 0, "heads": 1}])
-    if _use_kernel(q):
-        if _needs_grad(q, k_cache, v_cache):
-            raise missing_backward("decode_attention")
-        return _decode.decode_attention(q, k_cache, v_cache, lengths,
-                                        window=window, scale=scale)
-    return _ref.decode_attention_ref(q, k_cache, v_cache, lengths,
-                                     window=window, scale=scale)
+    with step_span("kernel", "decode_attention"):
+        if is_dtensor(q):
+            k_cache, v_cache = _kv_for_sharded_heads(q, k_cache, v_cache, 1)
+            return _on_shards(
+                lambda a, b, c, n: decode_attention(
+                    a, b, c, n, window=window, scale=scale),
+                (q, k_cache, v_cache, lengths),
+                {"batch": (0, 0, 0, 0), "heads": (1, 2, 2, None)},
+                [{"batch": 0, "heads": 1}])
+        if _use_kernel(q):
+            if _needs_grad(q, k_cache, v_cache):
+                raise missing_backward("decode_attention")
+            return _decode.decode_attention(q, k_cache, v_cache, lengths,
+                                            window=window, scale=scale)
+        return _ref.decode_attention_ref(q, k_cache, v_cache, lengths,
+                                         window=window, scale=scale)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None,
              return_state=False):
-    if is_dtensor(x):
-        return _on_shards(
-            lambda x_, dt_, A_, B_, C_, s_: ssd_scan(
-                x_, dt_, A_, B_, C_, chunk=chunk, init_state=s_,
-                return_state=return_state),
-            (x, dt, A, Bm, Cm, init_state),
-            {"batch": (0, 0, None, 0, 0, 0)},
-            [{"batch": 0}, {"batch": 0}] if return_state else [{"batch": 0}])
-    if _use_kernel(x):
-        more = (dt, A, Bm, Cm) + (() if init_state is None else (init_state,))
-        if _needs_grad(x, *more):
-            return _ssd.SsdScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk,
-                                        return_state)
-        return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
-                             init_state=init_state, return_state=return_state)
-    return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
-                             init_state=init_state, return_state=return_state)
+    with step_span("kernel", "ssd_scan"):
+        if is_dtensor(x):
+            return _on_shards(
+                lambda x_, dt_, A_, B_, C_, s_: ssd_scan(
+                    x_, dt_, A_, B_, C_, chunk=chunk, init_state=s_,
+                    return_state=return_state),
+                (x, dt, A, Bm, Cm, init_state),
+                {"batch": (0, 0, None, 0, 0, 0)},
+                [{"batch": 0}, {"batch": 0}] if return_state
+                else [{"batch": 0}])
+        if _use_kernel(x):
+            more = (dt, A, Bm, Cm) + (() if init_state is None
+                                      else (init_state,))
+            if _needs_grad(x, *more):
+                return _ssd.SsdScanFn.apply(x, dt, A, Bm, Cm, init_state,
+                                            chunk, return_state)
+            return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                                 init_state=init_state,
+                                 return_state=return_state)
+        return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                                 init_state=init_state,
+                                 return_state=return_state)
 
 
 def ssd_decode(x, dt, A, Bm, Cm, state):
-    return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, state)
+    with step_span("kernel", "ssd_decode"):
+        return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, state)

@@ -7,7 +7,10 @@ Two modes, as in ``repro.launch.serve``:
 (optionally different architectures, each at its ``reduced()`` size) and
 replays a synthetic request stream through continuous batchers, reporting
 density metrics: placement, pool behaviour, program-cache sharing, tokens
-per second.
+per second. ``--trace-out PATH`` traces every request and step of the
+batchers (``core/tracing``) and writes their request tracks and step
+track as Chrome trace-event JSON, which ``python -m
+repro_torch.core.tracing --check PATH`` validates.
 
 **Open-loop gateway replay** (``--gateway``): replays a trace — an Azure
 Functions 2019 CSV via ``--trace-file``, or the synthetic generator — in
@@ -65,6 +68,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import (ClusterParams, ContinuousBatcher, HydraCluster,
                               HydraPlatform, HydraRuntime, LMSpec,
                               PlatformParams)
+from repro_torch.core.tracing import NULL_TRACE, Tracer, export_chrome
 from repro_torch.device import resolve_device
 from repro_torch.models.programs import ModelProgram
 
@@ -231,7 +235,8 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None,
                     help="write sampled request spans as Chrome "
                          "trace-event JSON to this path after the replay "
-                         "(gateway mode)")
+                         "(gateway mode), or every LM request's track and "
+                         "the batchers' step track after the run")
     ap.add_argument("--trace-sample", type=float, default=None,
                     help="head-sampling rate for request tracing in "
                          "[0,1] (gateway mode; default 1.0 when "
@@ -258,7 +263,6 @@ def main(argv=None):
                         ("--slo-timeout", args.slo_timeout is not None),
                         ("--tenant-rate", args.tenant_rate is not None),
                         ("--attribute", args.attribute),
-                        ("--trace-out", args.trace_out is not None),
                         ("--trace-sample", args.trace_sample is not None),
                         ("--flight-recorder", args.flight_dir is not None)]
         used = [flag for flag, on in gateway_only if on]
@@ -323,7 +327,8 @@ def _serve(args, target, device) -> dict:
         fids.append(fid)
     t_reg = time.perf_counter() - t0
 
-    batchers = {fid: ContinuousBatcher(runtime_for(fid), fid)
+    tracer = Tracer(seed=args.seed) if args.trace_out is not None else None
+    batchers = {fid: ContinuousBatcher(runtime_for(fid), fid, tracer=tracer)
                 for fid in fids}
     print(f"[serve] registered {len(fids)} functions in {t_reg:.1f}s on "
           f"{device} (exe cache: {exe_cache.stats()})")
@@ -338,7 +343,8 @@ def _serve(args, target, device) -> dict:
                 # batchers talk to runtimes directly; tell the cluster
                 # about the arrival so adaptive pool sizing sees the load
                 platform.observe_arrival(fid)
-            futs.append(batchers[fid].submit(prompt, args.max_new))
+            ctx = tracer.start_request(fid) if tracer else NULL_TRACE
+            futs.append(batchers[fid].submit(prompt, args.max_new, ctx))
             # interleave stepping: every submit, run one tick on all
             for b in batchers.values():
                 if b.active or b.pending:
@@ -373,6 +379,13 @@ def _serve(args, target, device) -> dict:
         print(f"[serve] budget used {s['budget_used'] / 2**20:.0f} MB "
               f"(peak {s['budget_peak'] / 2**20:.0f} MB)")
     print(f"[serve] exe cache: {exe_cache.stats()}")
+    if tracer is not None:
+        doc = export_chrome(tracer, args.trace_out,
+                            meta={"archs": args.archs,
+                                  "tenants": args.tenants})
+        print(f"[serve] wrote {len(doc['traceEvents'])} trace events "
+              f"({len(tracer.traces())} requests, {len(tracer.steps())} "
+              f"steps) to {args.trace_out}")
     if args.calibration:
         # dedupe by identity: colocated fids share a runtime, and a
         # duplicated runtime would bias the averaged costs toward it
@@ -391,7 +404,7 @@ def run_gateway(args, device) -> dict:
     from repro_torch.core.calibrate import (calibration_from_replay,
                                             write_calibration_doc)
     from repro_torch.core.sim import SimParams
-    from repro_torch.core.tracing import FlightRecorder, Tracer, export_chrome
+    from repro_torch.core.tracing import FlightRecorder
     from repro_torch.gateway import (ReplayConfig, format_report, load_trace,
                                      replay_trace, run_validation)
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.tracing import step_span
 from repro_torch.device import torch_dtype
 from repro_torch.launch.sharding import shard
 from repro_torch.models import attention as attn
@@ -141,21 +142,30 @@ def _attn_ffn_prefill(p_l, h: torch.Tensor, cfg, positions, window,
                       n_groups: int = 1):
     """One attention + FFN block (a layer, or the hybrid's shared block)
     over the whole sequence -> (h, (k, v), aux)."""
-    hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
-    a, kv = attn.attention_prefill(p_l["attn"], hn, cfg, positions, window)
-    h = h + a
-    hn = rmsnorm(h, p_l["ln2"], cfg.norm_eps)
-    out, aux = _ffn(p_l, hn, cfg, n_groups)
-    return h + out, kv, aux
+    with step_span("norm"):
+        hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+    with step_span("mixer"):
+        a, kv = attn.attention_prefill(p_l["attn"], hn, cfg, positions,
+                                       window)
+        h = h + a
+    with step_span("norm"):
+        hn = rmsnorm(h, p_l["ln2"], cfg.norm_eps)
+    with step_span("ffn"):
+        out, aux = _ffn(p_l, hn, cfg, n_groups)
+        return h + out, kv, aux
 
 
 def _attn_ffn_decode(p_l, h: torch.Tensor, cfg, k_cache, v_cache, lengths,
                      window, n_groups: int = 1) -> torch.Tensor:
-    hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
-    h = h + attn.attention_decode(p_l["attn"], hn, cfg, k_cache, v_cache,
-                                  lengths, window)
-    hn = rmsnorm(h, p_l["ln2"], cfg.norm_eps)
-    return h + _ffn(p_l, hn, cfg, n_groups)[0]
+    with step_span("norm"):
+        hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+    with step_span("mixer"):
+        h = h + attn.attention_decode(p_l["attn"], hn, cfg, k_cache,
+                                      v_cache, lengths, window)
+    with step_span("norm"):
+        hn = rmsnorm(h, p_l["ln2"], cfg.norm_eps)
+    with step_span("ffn"):
+        return h + _ffn(p_l, hn, cfg, n_groups)[0]
 
 
 def _shared_after(cfg, i: int) -> bool:
@@ -249,7 +259,8 @@ def prefill(params, cfg, tokens=None, embeds=None, *, n_groups: int = 1):
     dense, moe, vlm, audio  {k, v: (L,B,S,Hkv,hd), length};
     ssm     {conv: (L,B,k-1,conv_dim), state: (L,B,H,P,N) fp32, length};
     hybrid  the ssm leaves plus {k, v: (G,B,S,Hkv,hd)}, G = L // k."""
-    h = shard(_embed(params, cfg, tokens, embeds), "batch", None, None)
+    with step_span("embed"):
+        h = shard(_embed(params, cfg, tokens, embeds), "batch", None, None)
     B, S, _ = h.shape
     dt = h.dtype
     positions = torch.arange(S, device=h.device)[None, :]
@@ -265,10 +276,12 @@ def prefill(params, cfg, tokens=None, embeds=None, *, n_groups: int = 1):
         convs, states = [], []
         for i in range(cfg.n_layers):
             p_l = _layer(params["layers"], i)
-            hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
-            o, (conv, state) = ssm_mod.mamba_prefill(p_l["ssm"], hn, cfg,
-                                                     return_state=True)
-            h = h + o
+            with step_span("norm"):
+                hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+            with step_span("mixer"):
+                o, (conv, state) = ssm_mod.mamba_prefill(
+                    p_l["ssm"], hn, cfg, return_state=True)
+                h = h + o
             convs.append(conv)
             states.append(state)
             if _shared_after(cfg, i):
@@ -276,18 +289,23 @@ def prefill(params, cfg, tokens=None, embeds=None, *, n_groups: int = 1):
                                                  positions, None)
                 ks.append(k.to(dt))
                 vs.append(v.to(dt))
-        cache = {"conv": torch.stack(convs), "state": torch.stack(states)}
-    if cfg.family not in ("ssm", "hybrid"):
-        cache["k"] = shard(torch.stack(ks), None, "batch", "kv_seq",
-                           "kv_heads", None)
-        cache["v"] = shard(torch.stack(vs), None, "batch", "kv_seq",
-                           "kv_heads", None)
-    elif ks:
-        cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
-    cache["length"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
+    with step_span("cache_pack"):
+        if cfg.family not in ("ssm", "hybrid"):
+            cache["k"] = shard(torch.stack(ks), None, "batch", "kv_seq",
+                               "kv_heads", None)
+            cache["v"] = shard(torch.stack(vs), None, "batch", "kv_seq",
+                               "kv_heads", None)
+        else:
+            cache = {"conv": torch.stack(convs),
+                     "state": torch.stack(states)}
+            if ks:
+                cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
+        cache["length"] = torch.full((B,), S, dtype=torch.int32,
+                                     device=h.device)
     # the last position of B > 1 rows is a strided view; the norm's
     # kernel takes contiguous rows
-    return _unembed(params, cfg, h[:, -1:].contiguous())[:, 0], cache
+    with step_span("lm_head"):
+        return _unembed(params, cfg, h[:, -1:].contiguous())[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +316,8 @@ def decode_step(params, cfg, cache, tokens=None, embeds=None, *,
     """tokens (B,1) / embeds (B,1,D) -> (logits (B,V), cache). Writes
     every layer's new K/V row, conv window and SSM state into the cache's
     leaves and bumps ``cache["length"]``, all in place."""
-    h = _embed(params, cfg, tokens, embeds)
+    with step_span("embed"):
+        h = _embed(params, cfg, tokens, embeds)
     lengths = cache["length"]
     if cfg.family not in ("ssm", "hybrid"):
         for i, window in enumerate(layer_windows(cfg)):
@@ -309,12 +328,16 @@ def decode_step(params, cfg, cache, tokens=None, embeds=None, *,
         g = 0
         for i in range(cfg.n_layers):
             p_l = _layer(params["layers"], i)
-            hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
-            h = h + ssm_mod.mamba_decode(p_l["ssm"], hn, cfg,
-                                         cache["conv"][i], cache["state"][i])
+            with step_span("norm"):
+                hn = rmsnorm(h, p_l["ln1"], cfg.norm_eps)
+            with step_span("mixer"):
+                h = h + ssm_mod.mamba_decode(p_l["ssm"], hn, cfg,
+                                             cache["conv"][i],
+                                             cache["state"][i])
             if _shared_after(cfg, i):
                 h = _attn_ffn_decode(params["shared"], h, cfg, cache["k"][g],
                                      cache["v"][g], lengths, None)
                 g += 1
     lengths.add_(1)
-    return _unembed(params, cfg, h)[:, 0], cache
+    with step_span("lm_head"):
+        return _unembed(params, cfg, h)[:, 0], cache
