@@ -17,14 +17,53 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.arena import tree_leaves
+from repro_torch.core.runtime import pinned_device
 from repro_torch.core.tracing import (NULL_STEP, NULL_TRACE, StepTrace,
                                       profile_tracer, trace_now)
+from repro_torch.kernels import ops as kernel_ops
 
 # whether a torch profiler records on this thread (one C call). A
 # stopgap: the benchmark's serving harness passes no Tracer yet, so a
 # batcher given none traces into the profile tracer while the harness's
 # profiler records; it goes once the harness passes a Tracer
 _profiled = torch.autograd._profiler_enabled
+
+# per device, the side stream its decode steps are captured on and the
+# anchor of the memory pool their graphs share, one each for every batcher
+# there: cuBLAS makes its workspace for the stream once a device, and the
+# graphs' temporaries take one pool's room, not one pool a batcher. Sharing
+# the pool is safe as the graphs never run at once (they replay on the
+# stepping thread's stream) and a step reads its tokens from ``cur_tok``,
+# outside the pool.
+_capture_sides: dict = {}
+
+
+def _graphs_on(device: torch.device) -> bool:
+    """Whether a batcher on ``device`` replays its decode step as a CUDA
+    graph: where the runtime runs on CUDA."""
+    return device.type == "cuda"
+
+
+def _capture_side(device: torch.device) -> tuple:
+    """(capture stream, anchor graph) of ``device``; the decode graphs
+    capture into the anchor's pool. The device and host allocators retire
+    a pool that no graph holds, and a retired pool takes no capture, so
+    the anchor, a one-node graph never replayed, holds it for the process
+    (a ``torch.cuda.MemPool`` holds the device allocator's side only)."""
+    device = pinned_device(device)       # "cuda" and "cuda:0" are one card
+    side = _capture_sides.get(device)
+    if side is None:
+        stream, anchor = torch.cuda.Stream(device), torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            anchor.capture_begin(torch.cuda.graph_pool_handle(),
+                                 capture_error_mode="thread_local")
+            try:
+                torch.zeros((), device=device)  # an empty graph warns
+            finally:
+                anchor.capture_end()
+        side = _capture_sides[device] = (stream, anchor)
+    return side
 
 
 class TokenBucket:
@@ -76,6 +115,22 @@ class ContinuousBatcher:
     while a torch profiler records on this thread (then a request
     submitted with no context is traced there too). With neither, every
     span site hands out the shared no-op span.
+
+    Decode graph: on CUDA the decode step, whose shapes never change,
+    is captured once into a ``torch.cuda.CUDAGraph`` and replayed on
+    every later step (one launch in place of one per kernel). The first
+    decode runs eagerly (it loads the kernels and cuBLAS); the second is
+    captured, which runs nothing, then replayed once to run; the rest
+    replay. The graph reads the params, the slab's leaves and
+    ``cur_tok`` at the addresses they had at capture, and its last node
+    copies the sampled tokens into ``cur_tok``, so the step is keyed on
+    those addresses: when one moves (a slab or a tenant's weights
+    replaced) the graph is dropped and the next step captures again.
+    The runtime's ``decode_graph.captures`` and ``decode_graph.replays``
+    count them, and a traced step's ``decode.forward`` carries ``graph``
+    (eager, capture or replay). A replayed step records no span below
+    ``decode.forward``; the kernel wrappers' ``launches`` go up on each
+    replay by what the capture counted, and not for the capture.
     """
 
     def __init__(self, runtime, fid: str, tracer=None):
@@ -94,6 +149,9 @@ class ContinuousBatcher:
         self.cache = self.arena.buffers
         self.cur_tok = torch.zeros((self.slots, 1), dtype=torch.int32,
                                    device=runtime.device)
+        self._graphs = _graphs_on(runtime.device)
+        self._graph = None       # (addresses, CUDAGraph, launches)
+        self._decoded = False    # a decode has run eagerly
         self.steps = 0
         self._ticks = 0          # step() calls: the step track's ids
         self._submitted = 0
@@ -184,9 +242,9 @@ class ContinuousBatcher:
         if not self.active:
             return 0
         with st.child("decode.forward") as fwd:
-            tok, self.cache = self.func.entry["decode"](
-                self.spec.params, self.cache, self.cur_tok)
-            self.cur_tok = tok.reshape(self.slots, 1)
+            tok, how = self._decode()
+            if traced:
+                fwd.set(graph=how)
         self.steps += 1
         with st.child("readback") as rb:
             if traced:
@@ -238,11 +296,71 @@ class ContinuousBatcher:
                 with self._lock:
                     self._traced -= 1
 
+    def _decode_eager(self) -> torch.Tensor:
+        """Decode every slot; the sampled tokens, (slots,), are also
+        copied into ``cur_tok``, where the next step reads them."""
+        tok, self.cache = self.func.entry["decode"](
+            self.spec.params, self.cache, self.cur_tok)
+        self.cur_tok.copy_(tok.reshape(self.slots, 1))
+        return tok
+
+    def _decode(self) -> tuple:
+        """(sampled tokens, how: eager, capture or replay); the class
+        docstring gives the order."""
+        if not self._graphs:
+            return self._decode_eager(), "eager"
+        key = tuple(x.data_ptr() for x in tree_leaves(
+            (self.spec.params, self.cache, self.cur_tok)))
+        if self._graph is not None and self._graph[0] != key:
+            self._graph = None
+        how = "replay"
+        if self._graph is None:
+            if not self._decoded:
+                self._decoded = True
+                return self._decode_eager(), "eager"
+            self._graph = (key, *self._capture())
+            # hydralint: disable=HL004 — a port-only counter: the sim
+            # models no launch cost inside a step
+            self.rt.metrics.inc("decode_graph.captures")
+            how = "capture"
+        _, graph, launched = self._graph
+        graph.replay()
+        kernel_ops.add_launches(launched)
+        # hydralint: disable=HL004 — a port-only counter (above)
+        self.rt.metrics.inc("decode_graph.replays")
+        return self.cur_tok.view(-1), how
+
+    def _capture(self) -> tuple:
+        """Capture the decode step: (the graph, the kernel launches it
+        makes, by wrapper). The capture runs nothing, so it counts no
+        launch (a launch another thread makes meanwhile is counted with
+        the step's). Not ``torch.cuda.graph``: that empties the
+        allocator's cache at every capture, under every other tenant on
+        the card."""
+        stream, anchor = _capture_side(self.rt.device)
+        graph = torch.cuda.CUDAGraph()
+        before = kernel_ops.launch_counts()
+        torch.cuda.synchronize(self.rt.device)  # as torch.cuda.graph does
+        with torch.cuda.stream(stream):
+            # thread_local: the runtime's worker and janitor threads may
+            # use the card while this thread captures
+            graph.capture_begin(anchor.pool(),
+                                capture_error_mode="thread_local")
+            try:
+                self._decode_eager()
+            finally:
+                graph.capture_end()
+        launched = {k: n - before[k]
+                    for k, n in kernel_ops.launch_counts().items()}
+        kernel_ops.add_launches({k: -n for k, n in launched.items()})
+        return graph, launched
+
     def run_until_done(self, max_steps: int = 10_000):
         while (self.active or self.pending) and max_steps > 0:
             self.step()
             max_steps -= 1
 
     def close(self):
+        self._graph = None       # before the slab it reads goes back
         self.arena.buffers = self.cache
         self.rt.arena_pool.release(self.arena)

@@ -80,6 +80,36 @@ def _use_kernel(x) -> bool:
     return True
 
 
+# the kernel wrappers that count their launches (``.launches``), by name,
+# each with the lock its module counts under
+_COUNTED = {
+    "rmsnorm": (_rmsnorm.rmsnorm, _rmsnorm._count_lock),
+    "rmsnorm_bwd": (_rmsnorm.rmsnorm_bwd, _rmsnorm._count_lock),
+    "flash_attention": (_flash.flash_attention, _flash._count_lock),
+    "flash_attention_bwd": (_flash.flash_attention_bwd, _flash._count_lock),
+    "decode_attention": (_decode.decode_attention, _decode._count_lock),
+    "ssd_scan": (_ssd.ssd_scan, _ssd._count_lock),
+    "ssd_scan_bwd": (_ssd.ssd_scan_bwd, _ssd._count_lock),
+}
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's ``launches``, by name."""
+    return {name: fn.launches for name, (fn, _) in _COUNTED.items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (by name, as ``launch_counts`` gives them) to the
+    wrappers' ``launches``: a CUDA graph's capture calls the wrappers but
+    launches nothing, and its replays launch their kernels without
+    calling them."""
+    for name, n in counts.items():
+        if n:
+            fn, lock = _COUNTED[name]
+            with lock:
+                fn.launches += n
+
+
 def _needs_grad(x, *more) -> bool:
     """A CUDA tensor under autograd: the kernel route must carry a
     gradient. One flag read under no_grad / inference_mode."""

@@ -379,6 +379,15 @@ def _serve(args, target, device) -> dict:
         print(f"[serve] budget used {s['budget_used'] / 2**20:.0f} MB "
               f"(peak {s['budget_peak'] / 2**20:.0f} MB)")
     print(f"[serve] exe cache: {exe_cache.stats()}")
+    memory = {}
+    if device.type == "cuda":
+        # reserved holds what allocated does not: the batchers' decode
+        # graphs' shared pool and the allocator's cached blocks
+        memory = {"memory_allocated": torch.cuda.memory_allocated(device),
+                  "memory_reserved": torch.cuda.memory_reserved(device)}
+        print(f"[serve] device memory: allocated "
+              f"{memory['memory_allocated'] / 2**20:.0f} MB, reserved "
+              f"{memory['memory_reserved'] / 2**20:.0f} MB")
     if tracer is not None:
         doc = export_chrome(tracer, args.trace_out,
                             meta={"archs": args.archs,
@@ -391,7 +400,8 @@ def _serve(args, target, device) -> dict:
         # duplicated runtime would bias the averaged costs toward it
         rts = list({id(b.rt): b.rt for b in batchers.values()}.values())
         emit_calibration(args.calibration, platform, rts)
-    return {**s, "requests": args.requests, "tokens": toks, "wall_s": dt}
+    return {**s, **memory, "requests": args.requests, "tokens": toks,
+            "wall_s": dt}
 
 
 def run_gateway(args, device) -> dict:

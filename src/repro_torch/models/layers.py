@@ -35,7 +35,10 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     half = hd // 2
     f32 = torch.float32
-    log_theta = torch.log(torch.tensor(theta, dtype=f32, device=x.device))
+    # a fill on the device, not a copy from the host: a CUDA graph
+    # captures it (theta rounds to fp32 as the copy's would)
+    log_theta = torch.log(torch.full((), theta, dtype=f32,
+                                     device=x.device))
     freq = torch.exp(-log_theta * torch.arange(0, half, dtype=f32,
                                                 device=x.device) / half)
     angles = positions.to(f32)[..., None] * freq     # (..., S, half)

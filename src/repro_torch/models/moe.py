@@ -21,7 +21,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.launch.sharding import shard
 from repro_torch.models.layers import dense_init
@@ -87,7 +86,12 @@ def route(p, xg: torch.Tensor, cfg, C: int) -> Routing:
 
     # --- Switch-style load-balance aux loss ---
     me = probs.mean(dim=(0, 1))                                 # (E,)
-    ce = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
+    # an iota compare, not F.one_hot: on the CPU one_hot reads the
+    # indices' range on the host, which the CPU test of the decode-step
+    # capture (tests/test_torch_decode_graph.py) traps as a CUDA capture
+    # would; on the card one_hot reads nothing there. Same 0/1 values.
+    ce = (gate_idx[..., 0, None] == torch.arange(E, device=dev)
+          ).float().mean(dim=(0, 1))
     aux = E * torch.sum(me * ce)
 
     # --- sort slots by expert id within each group ---

@@ -616,3 +616,231 @@ def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# the batcher's decode graph (core/scheduler): replays against eager steps
+# ---------------------------------------------------------------------------
+GRAPH_ARCHS = [("mamba2-780m", None), ("zamba2-2.7b", 12),
+               ("qwen2.5-3b", 4), ("gemma3-1b", 6),
+               ("granite-moe-1b-a400m", 4)]      # (arch, layers kept)
+
+
+def _graph_runtime(cuda, arch, layers, workers=False):
+    """A runtime on the card serving ``arch`` at full width (``layers``
+    of its depth, all when None), 4 slots of 1,024 positions, under the
+    fids ``eager`` and ``graph`` (one spec, so one set of weights)."""
+    from repro_torch.core import HydraRuntime, LMSpec
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    rt = HydraRuntime(device=cuda, memory_budget_bytes=1 << 40,
+                      n_workers=4 if workers else 0, janitor=workers)
+    spec = LMSpec(cfg=cfg, params=ModelProgram(cfg).init(
+        0, device=cuda, dtype=torch.bfloat16), max_seq=1024, slots=4)
+    for fid in ("eager", "graph", "alone"):
+        rt.register_function(fid, spec)
+    return rt, cfg
+
+
+def _graph_schedule(vocab: int, n: int = 16) -> list:
+    """(step, prompt, max_new): prompts of 40-700 tokens (past gemma3's
+    512-token window), 3-12 new tokens, one request every 3 steps."""
+    rng = np.random.default_rng(3)
+    return [(3 * i, rng.integers(0, vocab, int(rng.integers(40, 700)))
+             .tolist(), int(rng.integers(3, 13))) for i in range(n)]
+
+
+def _serve(b, sched) -> list:
+    sched, futs, step = list(sched), [], 0
+    while sched or b.active or b.pending:
+        while sched and sched[0][0] <= step:
+            _, prompt, n = sched.pop(0)
+            futs.append(b.submit(prompt, n))
+        b.step()
+        step += 1
+    return [f.result() for f in futs]
+
+
+def _batcher(rt, fid, graphs: bool, monkeypatch):
+    from repro_torch.core import ContinuousBatcher, scheduler
+    with monkeypatch.context() as m:
+        if not graphs:
+            m.setattr(scheduler, "_graphs_on", lambda device: False)
+        return ContinuousBatcher(rt, fid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", GRAPH_ARCHS)
+def test_decode_graph_replays_equal_eager_steps(cuda, arch, layers,
+                                                 monkeypatch):
+    """Over 50 and more steps with admissions between, the graph
+    batcher's tokens and its whole slab (free slots' rows included) are
+    bit for bit the eager batcher's: one capture, every later step a
+    replay. Each of two requests served alone, in slot 0, gives the
+    tokens it got beside the others (slot rows stay apart)."""
+    rt, cfg = _graph_runtime(cuda, arch, layers)
+    try:
+        sched = _graph_schedule(cfg.vocab_size)
+        eager = _batcher(rt, "eager", False, monkeypatch)
+        want = _serve(eager, sched)
+        graph = _batcher(rt, "graph", True, monkeypatch)
+        got = _serve(graph, sched)
+        assert graph.steps == eager.steps >= 50
+        assert got == want
+        for k in eager.cache:
+            assert torch.equal(graph.cache[k], eager.cache[k]), k
+        c = rt.metrics.counters
+        assert c["decode_graph.captures"] == 1
+        assert c["decode_graph.replays"] == graph.steps - 1
+        for b in (eager, graph):
+            b.close()
+        for i in (1, 6):
+            alone = _batcher(rt, "alone", True, monkeypatch)
+            assert _serve(alone, [(0,) + sched[i][1:]]) == [want[i]]
+            alone.close()
+    finally:
+        rt.shutdown()
+
+
+def _count_decodes(b, seen: list) -> None:
+    """Record, per decode step of ``b``, (how, the kernel launches it
+    added by wrapper)."""
+    from repro_torch.kernels import ops
+    decode = b._decode
+
+    def counted():
+        before = ops.launch_counts()
+        tok, how = decode()
+        after = ops.launch_counts()
+        seen.append((how, {k: n - before[k] for k, n in after.items()
+                           if n != before[k]}))
+        return tok, how
+
+    b._decode = counted
+
+
+@pytest.mark.cuda
+def test_decode_graphs_share_one_pool_and_count_their_launches(cuda,
+                                                               monkeypatch):
+    """Two runtimes' graph batchers on one card capture into one memory
+    pool and are stepped in turn: each gives its eager batcher's tokens.
+    Every decode step, eager, captured or replayed, adds the kernel
+    launches an eager step adds."""
+    from repro_torch.core import scheduler
+    made = [_graph_runtime(cuda, arch, layers)
+            for arch, layers in (("zamba2-2.7b", 6), ("qwen2.5-3b", 4))]
+    try:
+        scheds, want, eager_counts = [], [], []
+        for rt, cfg in made:
+            sched = _graph_schedule(cfg.vocab_size, n=6)
+            eager = _batcher(rt, "eager", False, monkeypatch)
+            seen = []
+            _count_decodes(eager, seen)
+            want.append(_serve(eager, sched))
+            eager.close()
+            assert {h for h, _ in seen} == {"eager"}
+            assert all(c == seen[0][1] for _, c in seen) and seen[0][1]
+            scheds.append(sched)
+            eager_counts.append(seen[0][1])
+        graphs = [_batcher(rt, "graph", True, monkeypatch)
+                  for rt, _ in made]
+        seen = [[], []]
+        for b, s in zip(graphs, seen):
+            _count_decodes(b, s)
+        futs = [[], []]
+        step = 0
+        while any(scheds) or any(b.active or b.pending for b in graphs):
+            for i, b in enumerate(graphs):     # in turn, one step each
+                while scheds[i] and scheds[i][0][0] <= step:
+                    _, prompt, n = scheds[i].pop(0)
+                    futs[i].append(b.submit(prompt, n))
+                if b.active or b.pending:
+                    b.step()
+            step += 1
+        for i, b in enumerate(graphs):
+            assert [f.result() for f in futs[i]] == want[i]
+            hows = [h for h, _ in seen[i]]
+            assert hows[:2] == ["eager", "capture"]
+            assert set(hows[2:]) == {"replay"} and len(hows) > 10
+            assert all(c == eager_counts[i] for _, c in seen[i])
+            assert made[i][0].metrics.counters["decode_graph.captures"] == 1
+        (_, anchor), = scheduler._capture_sides.values()
+        assert [b._graph[1].pool() for b in graphs] == [anchor.pool()] * 2
+        for b in graphs:
+            b.close()
+    finally:
+        for rt, _ in made:
+            rt.shutdown()
+
+
+@pytest.mark.cuda
+def test_decode_graph_captures_while_workers_use_the_card(cuda, monkeypatch):
+    """The capture is thread_local: the runtime's workers keep invoking a
+    function on the card (a matmul and a stream sync each) while the
+    batcher captures, and both give what they give alone."""
+    import threading
+    from repro_torch.core import CallableSpec
+    rt, cfg = _graph_runtime(cuda, "qwen2.5-3b", 4, workers=True)
+    try:
+        w = torch.randn(512, 512, device=cuda)
+        rt.register_function("mm", CallableSpec(
+            name="mm", fn=lambda p, a: a["x"] @ p["w"],
+            example_args={"x": torch.ones(64, 512, device=cuda)},
+            params={"w": w}))
+        x = torch.randn(64, 512, device=cuda)
+        want_y = x @ w
+        sched = _graph_schedule(cfg.vocab_size, n=4)
+        eager = _batcher(rt, "eager", False, monkeypatch)
+        want = _serve(eager, sched)
+        eager.close()
+        stop, bad, calls = threading.Event(), [], [0]
+
+        def invoke():
+            while not stop.is_set():
+                y = rt.invoke("mm", {"x": x})
+                calls[0] += 1
+                if not torch.equal(y, want_y):
+                    bad.append(calls[0])
+
+        threads = [threading.Thread(target=invoke) for _ in range(3)]
+        for t in threads:
+            t.start()
+        try:
+            graph = _batcher(rt, "graph", True, monkeypatch)
+            got = _serve(graph, sched)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+        graph.close()
+        assert got == want and not bad and calls[0] > 0
+        assert rt.metrics.counters["decode_graph.captures"] == 1
+    finally:
+        rt.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta", [10000.0, 1e6])
+def test_rotary_fill_is_bitwise_the_host_copy_and_captures(cuda, theta):
+    """rotary's theta, a fill on the device, gives the bits the host copy
+    gave, and rotary now captures into a CUDA graph."""
+    from repro_torch.models.layers import rotary
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 1, 16, 128, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    pos = torch.randint(0, 4096, (4, 1), generator=g, device=cuda)
+    f32, half = torch.float32, 64
+    freq = torch.exp(-torch.log(torch.tensor(theta, dtype=f32, device=cuda))
+                     * torch.arange(0, half, dtype=f32, device=cuda) / half)
+    ang = (pos.to(f32)[..., None] * freq)[..., None, :]
+    x1, x2 = x[..., :half].to(f32), x[..., half:].to(f32)
+    want = torch.cat([x1 * ang.cos() - x2 * ang.sin(),
+                      x2 * ang.cos() + x1 * ang.sin()], dim=-1).to(x.dtype)
+    assert torch.equal(rotary(x, pos, theta), want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rotary(x, pos, theta)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
