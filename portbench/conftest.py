@@ -3,6 +3,7 @@ reduced configuration of the port on the CPU, from parts written under a
 temporary directory, beside the package's own parts."""
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -49,19 +50,51 @@ def write_parts(d: Path) -> dict:
     return spec
 
 
-@pytest.fixture(scope="module")
-def tiny(tmp_path_factory):
-    """The reduced cells' registry; one CPU thread while it lives, as the
-    harness runs, so a worker shared with other tests is not swamped."""
+@contextlib.contextmanager
+def one_thread():
+    """One CPU thread while inside, as the harness runs, so a worker
+    shared with other tests is not swamped."""
     import torch
-    from portbench.registry import Registry
-    d = tmp_path_factory.mktemp("portbench_parts")
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        yield Registry([d], write_parts(d))
+        yield
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    """The reduced cells' registry; one CPU thread while it lives."""
+    from portbench.registry import Registry
+    d = tmp_path_factory.mktemp("portbench_parts")
+    with one_thread():
+        yield Registry([d], write_parts(d))
+
+
+class StepClock:
+    """A clock that moves ``tick`` seconds at every reading. With it a
+    run's window holds the same steps, and the same requests finish in
+    it, however fast or loaded the host is."""
+
+    def __init__(self, tick: float = 0.01):
+        self.t, self.tick = 0.0, tick
+
+    def perf_counter(self) -> float:
+        self.t += self.tick
+        return self.t
+
+
+@pytest.fixture
+def step_clock(monkeypatch):
+    """The serving driver on a ``StepClock``, on one CPU thread: a window
+    of ``s`` seconds is about ``s / 0.03`` steps (three readings a step).
+    Give ``run_cell`` ``t_start=0.0``, the clock's own zero."""
+    from portbench.drivers import serving
+    clock = StepClock()
+    monkeypatch.setattr(serving, "time", clock)
+    with one_thread():
+        yield clock
 
 
 @pytest.fixture

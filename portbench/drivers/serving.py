@@ -107,7 +107,8 @@ def run(ctx) -> Record:
 
     build_kernels(dev)
     part("kernels")
-    params = weights.make(cfg, ctx.seed, torch.bfloat16, dev)
+    params = weights.make(ctx.registry, cfg, ctx.seed, torch.bfloat16,
+                          dev)
     sync(dev)
     part("weights")
     rt = HydraRuntime(device=dev, n_workers=0, janitor=False,
@@ -213,7 +214,7 @@ def reference_logits(registry, cfg, params, r, device, precision="fp32"):
     ``r``'s served tokens: the prompt and the served tokens but the last,
     as one sequence."""
     from portbench.reference.layers import fp32_mode
-    model = registry.module("reference", cfg["family"])
+    model = registry.reference(cfg)
     seq = np.concatenate([r["ids"], np.asarray(r["tokens"][:-1], np.int32)])
     toks = torch.as_tensor(seq, device=device)[None]
     rows = slice(r["prompt"] - 1, r["prompt"] - 1 + r["n_out"])

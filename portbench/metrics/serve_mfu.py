@@ -1,11 +1,12 @@
 """serve_mfu: model flops of the window's work (each prefill, and each
 token decoded for a request, at the keys it saw) over the window's
-seconds, as a share of the bf16 peak (``counts/model_flops``,
-``counts/peaks``), in %."""
+seconds, as a share of the bf16 peak (``counts/model_flops.<family>`` of
+the cell's configuration, ``counts/peaks``), in %. A cell whose family
+has no count raises: no other family's count stands in."""
 
 
 def read(run):
-    mf = run.registry.count("model_flops")
+    mf = run.registry.model_flops(run.cfg)
     peaks = run.registry.count("peaks")
     steps = run.window_steps()
     if not steps:

@@ -41,7 +41,7 @@ def serve_control(registry, cfg, seed, sample, device) -> float:
     import torch
     from portbench import weights
     from portbench.drivers.serving import gaps_of, reference_logits
-    params = weights.make(cfg, seed, torch.bfloat16, device)
+    params = weights.make(registry, cfg, seed, torch.bfloat16, device)
     worst = 0.0
     for r in sample:
         ref = reference_logits(registry, cfg, params, r, device)

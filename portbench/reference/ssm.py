@@ -1,6 +1,7 @@
 """Plain float32 reference of the ``ssm`` family: Mamba2 blocks (SSD,
 arXiv:2405.21060) with one B/C group, as the port's configuration
 defines them, from token ids to logits. No kernel, cache or batching.
+``shapes`` gives the leaves it reads, which ``weights`` makes.
 
 Per block, for x (B, S, D) after the pre-norm:
   [z, xBC, dt] = x W_in
@@ -22,6 +23,33 @@ import torch.nn.functional as F
 from portbench.reference.layers import F32, matmul, rmsnorm
 
 F64 = torch.float64
+
+
+def shapes(cfg: dict) -> dict:
+    """{path: (shape, kind)} of every leaf of the ``ssm`` family, in the
+    program's tree order (kinds as ``weights`` makes them)."""
+    L, D, V = cfg["n_layers"], cfg["d_model"], cfg["vocab_size"]
+    din = cfg["ssm_expand"] * D
+    N, P = cfg["ssm_state"], cfg["ssm_head_dim"]
+    H = din // P
+    cd = din + 2 * N
+    k = cfg["ssm_conv"]
+    out = {
+        "embed.tok": ((V, D), ("normal", D)),
+        "layers.ln1": ((L, D), ("norm",)),
+        "layers.ssm.in_proj": ((L, D, 2 * din + 2 * N + H), ("normal", D)),
+        "layers.ssm.conv_w": ((L, k, cd), ("normal", k)),
+        "layers.ssm.conv_b": ((L, cd), ("norm",)),
+        "layers.ssm.A_log": ((L, H), ("A_log",)),
+        "layers.ssm.D": ((L, H), ("ones",)),
+        "layers.ssm.dt_bias": ((L, H), ("dt_bias",)),
+        "layers.ssm.norm": ((L, din), ("norm",)),
+        "layers.ssm.out_proj": ((L, din, D), ("normal", din)),
+    }
+    out["final_norm"] = ((D,), ("norm",))
+    if not cfg["tie_embeddings"]:
+        out["lm_head"] = ((D, V), ("normal", D))
+    return out
 
 
 def ssd(x, dt, A, Bm, Cm, chunk: int) -> torch.Tensor:

@@ -6,8 +6,17 @@ mix or metric is added as files and ``BENCHMARK.json`` entries alone:
   limits/<workload>.json    each compared number's limit, and its readings
   metrics/<metric>.py       ``read(run)``: one metric from a run's record
   counts/<name>.py          frozen operation and byte counts
-  reference/<family>.py     a plain float32 reference model
   drivers/<kind>.py         ``run(ctx)``: set-up, window and check of a kind
+
+and, for each model family (a configuration's ``family``):
+
+  reference/<family>.py           the plain float32 reference model
+                                  (``logits``) and its weights' layout
+                                  (``shapes``), which ``weights`` makes
+  counts/model_flops.<family>.py  the family's model flops a token
+                                  (``prefill``, ``decode``)
+
+so a configuration of a new family joins as files of its own too.
 
 Each is looked up in the search roots in order (the package's own folder
 last), so a test can add parts from a directory of its own.
@@ -92,3 +101,12 @@ class Registry:
 
     def count(self, name: str):
         return self.module("counts", name)
+
+    def reference(self, cfg: dict):
+        """``reference/<family>.py`` of the configuration's family."""
+        return self.module("reference", cfg["family"])
+
+    def model_flops(self, cfg: dict):
+        """``counts/model_flops.<family>.py`` of the configuration's
+        family; a family without one has no model flops to read."""
+        return self.count(f"model_flops.{cfg['family']}")

@@ -24,7 +24,7 @@ def served(registry, cell, seed, n, device):
     from repro_torch.core.scheduler import ContinuousBatcher
     w = registry.workload(cell)
     cfg, mix = registry.config(w["config"]), registry.mix(w["traffic"])
-    params = weights.make(cfg, seed, torch.bfloat16, device)
+    params = weights.make(registry, cfg, seed, torch.bfloat16, device)
     rt = HydraRuntime(device=device, n_workers=0, janitor=False)
     rt.register_function("fn", LMSpec(cfg=arch_config(cfg), params=params,
                                       max_seq=mix["max_seq"],
@@ -50,11 +50,11 @@ def test_serving_control(tiny, cpu, seed):
     assert serve_control(tiny, cfg, seed, sample, cpu) > limit
 
 
-def test_altered_token_fault(tiny, cpu):
+def test_altered_token_fault(tiny, cpu, step_clock):
     limit = tiny.limits(CELL)["numbers"]["token_gap"]["limit"]
-    res, rec = run.run_cell(tiny, CELL, SEEDS[0], 3.0, False, cpu)
+    res, rec = run.run_cell(tiny, CELL, SEEDS[0], 1.0, False, cpu, 0.0)
     assert res["correct"], rec.checks
     with faults.altered_token(rec.cfg["vocab_size"]):
-        res, rec = run.run_cell(tiny, CELL, SEEDS[0], 3.0, False, cpu)
+        res, rec = run.run_cell(tiny, CELL, SEEDS[0], 1.0, False, cpu, 0.0)
     assert not res["correct"]
     assert rec.checks["token_gap"]["value"] > 10 * limit

@@ -6,10 +6,12 @@ from pathlib import Path
 
 import pytest
 
-from portbench.counts import model_flops, peaks, ssd_scan
+from portbench.counts import peaks, ssd_scan
+from portbench.registry import Registry
 
 HERE = Path(__file__).parent
 MAMBA = json.loads((HERE / "configs/mamba2-780m.json").read_text())
+model_flops = Registry().model_flops(MAMBA)       # counts/model_flops.ssm
 # one Mamba2 layer of mamba2-780m: in_proj (z, xBC, dt), conv taps, out_proj
 LAYER = 1536 * (2 * 3072 + 2 * 128 + 48) + 4 * 3328 + 3072 * 1536
 
@@ -21,6 +23,25 @@ def test_ssd_scan():
                       + 2 * 300 * 8 * 2 + 2 * 4 * 8 * 4)
     pairs = 32896 + 990
     assert flops == 2 * pairs * 8 + 2 * 2 * pairs * 4 + 4 * 2 * 300 * 8 * 4
+    assert ssd_scan.cost(1, 300, 2, 4, 8, 256, groups=1) == (nbytes, flops)
+
+
+def test_ssd_scan_groups():
+    # S 100 in chunks of 64 and 36 rows; 4 heads of 8 in 2 B/C groups,
+    # state 16, batch 3. Bytes: x and y 3*100*4*8 bf16 each, dt 3*100*4
+    # fp32, A 4 fp32, B and C 3*100*2*16 bf16 each, the state 3*4*8*16
+    # fp32: 38,400 + 4,800 + 16 + 38,400 + 6,144 = 87,760
+    pairs = 64 * 65 // 2 + 36 * 37 // 2                  # 2,080 + 666
+    assert pairs == 2746
+    nbytes, flops = ssd_scan.cost(3, 100, 4, 8, 16, 64, groups=2)
+    assert nbytes == 87760
+    # C B^T a group: 2*3*2*2,746*16 = 527,232; its product with x a head:
+    # 2*3*4*2,746*8 = 527,232; the state in and out: 4*3*4*100*16*8
+    # = 614,400
+    assert flops == 527232 + 527232 + 614400 == 1668864
+    one = ssd_scan.cost(3, 100, 4, 8, 16, 64)
+    assert nbytes - one[0] == 2 * 3 * 100 * 16 * 2       # one more B, C
+    assert flops - one[1] == 2 * 3 * 2746 * 16           # one more C B^T
 
 
 def test_peaks():

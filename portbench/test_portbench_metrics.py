@@ -62,7 +62,7 @@ def test_serve_window_metrics():
         np.percentile([400.0] * 12 + [500.0], 90))
     # admitting steps take 500 ms, the median decode 250: 250 ms a prompt
     assert read("prefill_ms_per_ktok.serve", rec) == pytest.approx(250.0)
-    mf = REG.count("model_flops")
+    mf = REG.model_flops(MAMBA)
     flops = 5 * mf.prefill(MAMBA, 1000) + 50 * mf.decode(MAMBA, 2000)
     assert read("serve_mfu", rec) == pytest.approx(
         100 * flops / 10.0 / 989e12)
@@ -121,5 +121,11 @@ def test_roofline_readers():
     least = 5 * 48 * peaks.bound_s(*ssd)
     assert read("ssd_scan_roofline.serve", rec) == pytest.approx(
         100 * least / 0.1)
+    # a configuration of two B/C groups counts its scans so
+    rec.cfg = dict(MAMBA, ssm_groups=2)
+    two = REG.count("ssd_scan").cost(1, 1000, 48, 64, 128, 256, groups=2)
+    assert two != ssd
+    assert read("ssd_scan_roofline.serve", rec) == pytest.approx(
+        100 * 5 * 48 * peaks.bound_s(*two) / 0.1)
     rec.kernels = [k for k in rec.kernels if "ssd" not in k[0]]
     assert read("ssd_scan_roofline.serve", rec) is None
