@@ -91,6 +91,19 @@ holds the dry-run's roofline to it); any failure exits non-zero.
 4e. musicgen-large (audio, 48 layers) the same way on 4 rows of 128 frame
    embeddings and one frame per decode step; its ``LMSpec`` must be
    refused at ``register_function`` with the budget untouched.
+4f. zamba2-7b-instruct (the published Zamba2 block: 81 Mamba2 layers in
+   two B/C groups, 13 invocations of 2 shared blocks at head dim 224) at
+   full width and depth as phase 3 (its fp32 logits check at its first
+   24 layers, which hold 4 invocations: at 81, two bf16 paths part by
+   more than the gate through rounding alone), the launches of its
+   serving path (81 ssd_scan a prefill), prefill and decode profiles. Phase 1 holds its kernel instantiations at zamba2-docs'
+   shapes (flash and decode attention at head dim 224 and scale
+   112^-1/2, ssd_scan with two groups) to their plain versions and to a
+   wrong kernel's result (the default scale, the groups swapped), which
+   must fail the same tolerance. ``python3 chip_smoke.py --only
+   zamba2-7b-instruct`` runs that leg alone: its kernel rows, its path
+   and a ``kernels`` line with its launches (report in
+   ``chiprun_out/chip_smoke_zamba2-7b-instruct.json``).
 5. The reduced closed-loop serve, ``repro_torch.launch.serve``, over one
    tenant each of qwen2.5-3b, mamba2-780m, zamba2-2.7b and
    granite-moe-1b-a400m.
@@ -273,6 +286,12 @@ GRANITE_MOE = (16, 8, 64)        # group 2
 MUSICGEN = (32, 32, 64)          # group 1
 DBRX = (48, 8, 128)              # group 6: decode's G=8 instantiation
 INTERNVL = (64, 8, 128)          # group 8
+# zamba2-7b-instruct at zamba2-docs' serving shapes: 32 heads of 224 (no
+# GQA), 112 SSM heads of 64 with state 64 in two B/C groups, prompts of
+# ~2,500 tokens, 16 slots of 4,096 rows
+ZAMBA7 = dict(Hq=32, hd=224, H=112, P=64, N=64, G=2, S=2500, slots=16,
+              max_seq=4096)
+ZAMBA7_SCALE = 112 ** -0.5       # Zamba2Attention: (head dim / 2)^-1/2
 SSD_CHUNK = 256
 REPORT = {}
 
@@ -512,7 +531,17 @@ def phase_kernels() -> dict:
             f"decode {label} hd{d} group {hq // hkv} step")
         torch.cuda.empty_cache()
     out["ssd_scan"] = phase_ssd(gen)
+    torch.cuda.empty_cache()
+    for name, row in zamba2_7b_rows().items():
+        out[name]["zamba2-7b"] = row
     out.update(phase_backward(gen))
+    log_rows(out)
+    return out
+
+
+def log_rows(out: dict) -> None:
+    """One ``[kernels]`` line per timed row, nested rows under their
+    kernel's name."""
     for name, r in out.items():
         for tag, t in [("", r)] + [(f" {k}", v) for k, v in r.items()
                                    if isinstance(v, dict) and "ms" in v]:
@@ -528,7 +557,6 @@ def phase_kernels() -> dict:
                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
                 f"{lib_ms}, bound {t['bound_ms']:.5f} ms ({t['bound_by']})"
                 f"{grid}")
-    return out
 
 
 def ptxas_usage(stem: str, kernel: str, *parts: str) -> dict:
@@ -625,10 +653,10 @@ def attention_pairs(S: int, causal: bool, window) -> int:
     return sum(min(i + 1, w) for i in range(S))
 
 
-def time_flash(q, k, v, name: str, window=None) -> dict:
+def time_flash(q, k, v, name: str, window=None, scale=None) -> dict:
     """Flash attention at a prefill shape (bf16, causal, ``window`` or
-    none) against its plain version, then the kernel's, the plain
-    version's and SDPA's times beside the bound."""
+    none, ``scale`` or hd^-1/2) against its plain version, then the
+    kernel's, the plain version's and SDPA's times beside the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -637,8 +665,9 @@ def time_flash(q, k, v, name: str, window=None) -> dict:
 
     B, S, H, hd = q.shape
     win = window or GLOBAL_WINDOW
-    err = compare(name, flash_attention(q, k, v, window=win),
-                  ref.flash_attention_ref(q, k, v, window=window),
+    err = compare(name, flash_attention(q, k, v, window=win, scale=scale),
+                  ref.flash_attention_ref(q, k, v, window=window,
+                                          scale=scale),
                   torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
@@ -646,30 +675,31 @@ def time_flash(q, k, v, name: str, window=None) -> dict:
     b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
     if window is None:
         lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
     else:
         pos = torch.arange(S, device="cuda")
         mask = (pos[None, :] <= pos[:, None]) & \
             (pos[None, :] > pos[:, None] - window)
         lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=scale)
     return dict(
         shape=list(q.shape), kv_heads=k.shape[2], window=window,
         max_abs_err=err, ctas=-(-S // 64) * H * B,
         ptxas=ptxas_usage("flash_attention", "flash_wgmma_kernel",
                           f"Li{hd}E"),
-        **timings(lambda: flash_attention(q, k, v, window=win),
-                  lambda: ref.flash_attention_ref(q, k, v, window=window),
+        **timings(lambda: flash_attention(q, k, v, window=win, scale=scale),
+                  lambda: ref.flash_attention_ref(q, k, v, window=window,
+                                                  scale=scale),
                   lib, iters=30),
         bound_ms=b_ms, bound_by=b_by)
 
 
 def time_decode(q, kc, vc, name: str, window=None,
-                lens=(144, 516)) -> dict:
+                lens=(144, 516), scale=None) -> dict:
     """Decode attention at a decode shape: q (B,Hq,hd) bf16 against kc/vc
     (L,B,S,Hkv,hd), the layer slices of one slab, with ``lens`` repeated
-    over the rows. Each timed launch takes the next slice, so it finds its
-    cache cold in L2 as a decode step does."""
+    over the rows (``scale`` or hd^-1/2). Each timed launch takes the next
+    slice, so it finds its cache cold in L2 as a decode step does."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -683,9 +713,9 @@ def time_decode(q, kc, vc, name: str, window=None,
                            device="cuda")
     win = window or GLOBAL_WINDOW
     err = compare(name, decode_attention(q, kc[0], vc[0], lengths,
-                                         window=win),
+                                         window=win, scale=scale),
                   ref.decode_attention_ref(q, kc[0], vc[0], lengths,
-                                           window=window),
+                                           window=window, scale=scale),
                   torch.bfloat16)
     it = iter(range(10 ** 9))
     layer = lambda: next(it) % L
@@ -704,16 +734,18 @@ def time_decode(q, kc, vc, name: str, window=None,
     def lib():
         i = layer()
         return F.scaled_dot_product_attention(
-            q[:, :, None], kt[i], vt[i], attn_mask=mask, enable_gqa=True)
+            q[:, :, None], kt[i], vt[i], attn_mask=mask, enable_gqa=True,
+            scale=scale)
 
     def kern():
         i = layer()
-        return decode_attention(q, kc[i], vc[i], lengths, window=win)
+        return decode_attention(q, kc[i], vc[i], lengths, window=win,
+                                scale=scale)
 
     def plain():
         i = layer()
         return ref.decode_attention_ref(q, kc[i], vc[i], lengths,
-                                        window=window)
+                                        window=window, scale=scale)
 
     return dict(
         shape=[B, S, K, hd], q_heads=H, window=window,
@@ -763,38 +795,42 @@ def decode_hd80(gen) -> dict:
         "decode zamba2 hd80 main-path step")
 
 
-def ssd_inputs(gen, B, S, H, P, N, dtype, strided=False):
+def ssd_inputs(gen, B, S, H, P, N, dtype, strided=False, groups=1):
     """tests/test_kernels.py's distribution: softplus'd dt, A = -exp(0.3 z),
     B and C at half scale; x, B, C in ``dtype``, dt and A in fp32. With
-    ``strided`` x, B and C are column slices of one (B, S, H*P + 2N)
-    tensor, the layout of the serving path."""
+    ``strided`` x, B and C are column slices of one (B, S, H*P + 2GN)
+    tensor, the layout of the serving path. B and C are (B, S, N) for one
+    group, (B, S, G, N) for more."""
     f32 = torch.float32
+    GN = groups * N
     if strided:
-        xbc = randn((B, S, H * P + 2 * N), f32, gen)
+        xbc = randn((B, S, H * P + 2 * GN), f32, gen)
         xbc[..., H * P:] *= 0.5
         xbc = xbc.to(dtype)
         x = xbc[..., :H * P].reshape(B, S, H, P)
-        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        Bm, Cm = xbc[..., H * P:H * P + GN], xbc[..., H * P + GN:]
     else:
         x = randn((B, S, H, P), dtype, gen)
-        Bm, Cm = ((randn((B, S, N), f32, gen) * 0.5).to(dtype)
+        Bm, Cm = ((randn((B, S, GN), f32, gen) * 0.5).to(dtype)
                   for _ in range(2))
+    if groups > 1:
+        Bm, Cm = Bm.unflatten(-1, (groups, N)), Cm.unflatten(-1, (groups, N))
     dt = torch.nn.functional.softplus(randn((B, S, H), f32, gen))
     A = -torch.exp(randn((H,), f32, gen) * 0.3)
     return x, dt, A, Bm, Cm
 
 
-def ssd_bound(B, S, H, P, N, chunk, dtype) -> tuple:
+def ssd_bound(B, S, H, P, N, chunk, dtype, groups=1) -> tuple:
     """Least time for one scan with its final state: x, dt, A, B, C read
     once, y and the fp32 state written once; the chunked products with
-    C B^T counted once per chunk (it does not depend on the head), on the
-    rows this S really has."""
+    C B^T counted once per chunk and B/C group (it does not depend on the
+    head), on the rows this S really has."""
     xb = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * B * S * H * P * xb + B * S * H * 4 + H * 4
-              + 2 * B * S * N * xb + B * H * P * N * 4)
+              + 2 * B * S * groups * N * xb + B * H * P * N * 4)
     rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
     pairs = sum(r * (r + 1) // 2 for r in rows)
-    flops = 2.0 * B * pairs * N + 2.0 * B * H * pairs * P \
+    flops = 2.0 * B * pairs * groups * N + 2.0 * B * H * pairs * P \
         + 4.0 * B * H * S * N * P
     return bound(nbytes, flops, dtype)
 
@@ -865,6 +901,114 @@ def phase_ssd(gen) -> dict:
 
     out = timed(ZAMBA["H"], ZAMBA["P"], ZAMBA["N"])
     out["mamba2"] = timed(MAMBA["H"], MAMBA["P"], MAMBA["N"])
+    return out
+
+
+def must_fail(name: str, got, wrong, dtype) -> float:
+    """A negative control: ``got`` against the plain result of a wrong
+    kernel (another scale, the B/C groups swapped) must fail the tolerance
+    that the right plain result passes, or the check could not tell the
+    two apart. Returns the max abs difference."""
+    torch.cuda.synchronize()
+    g, w = got.float(), wrong.float()
+    err = (g - w).abs()
+    tol = TOL[dtype]
+    bad = int((err > tol + tol * w.abs()).sum())
+    if not bad:
+        raise AssertionError(f"{name}: tol {tol} passes a wrong kernel's "
+                             f"result too (max abs err {float(err.max()):.3e})")
+    log(f"[kernels] {name}: {bad} elements beyond tol {tol} (max abs err "
+        f"{float(err.max()):.3e}), as a wrong kernel's must")
+    return float(err.max())
+
+
+def zamba2_7b_rows() -> dict:
+    """zamba2-7b-instruct's kernel instantiations at zamba2-docs' serving
+    shapes, on draws of their own (the rows after them draw as they did
+    before the leg was added), each against its plain version in fp32
+    and bf16 and timed in
+    bf16 beside its bound: flash attention at head dim 224 and scale
+    112^-1/2 over a 2,500-token prompt (1,2500,32,224); decode attention
+    at head dim 224 over 16 slots of 4,096 rows (lengths up to 4,096, 1
+    and 0; timed at 2,700 over four invocations' slices of one slab);
+    ssd_scan with two B/C groups (1,2500,112,64), N 64, in the served
+    column-slice layout. Each is also held to a wrong kernel's plain
+    result (attention at the default hd^-1/2; the scan with its groups
+    swapped), which must fail the same tolerance."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import scan_plan, ssd_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    H, hd, sc, S = ZAMBA7["Hq"], ZAMBA7["hd"], ZAMBA7_SCALE, ZAMBA7["S"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    q, k, v = (randn((1, S, H, hd), f32, gen) for _ in range(3))
+    compare(f"flash zamba2-7b hd224 1,{S},{H},{H},{hd} scale 112^-1/2 "
+            f"{f32}", flash_attention(q, k, v, scale=sc),
+            ref.flash_attention_ref(q, k, v, scale=sc), f32)
+    q, k, v = (t.to(bf16) for t in (q, k, v))
+    out["flash_attention"] = time_flash(
+        q, k, v, "flash zamba2-7b hd224 main-path prefill", scale=sc)
+    out["flash_attention"]["wrong_scale_err"] = must_fail(
+        "flash zamba2-7b hd224 against the default scale",
+        flash_attention(q, k, v, scale=sc), ref.flash_attention_ref(q, k, v),
+        bf16)
+    del q, k, v
+
+    B, Smax = ZAMBA7["slots"], ZAMBA7["max_seq"]
+    lengths = torch.tensor([1024, 4000, 2500, 1, 0, 4096, 3000, 2048] * 2,
+                           dtype=torch.int32, device="cuda")
+    for dt in (f32, bf16):
+        q = randn((B, H, hd), dt, gen)
+        kc, vc = (randn((B, Smax, H, hd), dt, gen) for _ in range(2))
+        got = decode_attention(q, kc, vc, lengths, scale=sc)
+        compare(f"decode zamba2-7b hd224 {B},{Smax},{H},{H},{hd} "
+                f"lens={lengths.tolist()} {dt}", got,
+                ref.decode_attention_ref(q, kc, vc, lengths, scale=sc), dt)
+    wrong = must_fail("decode zamba2-7b hd224 against the default scale",
+                      got, ref.decode_attention_ref(q, kc, vc, lengths),
+                      bf16)
+    del q, kc, vc, got
+    torch.cuda.empty_cache()
+    out["decode_attention"] = time_decode(
+        randn((B, H, hd), bf16, gen),
+        *(randn((4, B, Smax, H, hd), bf16, gen) for _ in range(2)),
+        "decode zamba2-7b hd224 main-path step", lens=(2700,), scale=sc)
+    out["decode_attention"]["wrong_scale_err"] = wrong
+    torch.cuda.empty_cache()
+
+    Hs, P, N, G = ZAMBA7["H"], ZAMBA7["P"], ZAMBA7["N"], ZAMBA7["G"]
+    what = f"ssd_scan zamba2-7b {G} groups 1,{S},{Hs},{P} N={N}"
+    for dt in (f32, bf16):
+        args = ssd_inputs(gen, 1, S, Hs, P, N, dt, strided=True, groups=G)
+        y, sf = ssd_scan(*args, chunk=SSD_CHUNK, return_state=True)
+        yr, sr = ref.ssd_scan_ref(*args, chunk=SSD_CHUNK, return_state=True)
+        err = compare(f"{what} y {dt}", y, yr, dt)
+        compare(f"{what} final state {dt}", sf, sr, f32, tol=1e-3)
+        if not torch.equal(ssd_scan(*args, chunk=SSD_CHUNK), y):
+            raise AssertionError(f"{what} {dt}: two calls differ")
+    x, dt_, A, Bm, Cm = args
+    wrong = must_fail(f"{what} against its groups swapped", y,
+                      ref.ssd_scan_ref(x, dt_, A, Bm.flip(2), Cm.flip(2),
+                                       chunk=SSD_CHUNK), bf16)
+    kern = lambda: ssd_scan(*args, chunk=SSD_CHUNK, return_state=True)
+    plain = lambda: ref.ssd_scan_ref(*args, chunk=SSD_CHUNK,
+                                     return_state=True)
+    b_ms, b_by = ssd_bound(1, S, Hs, P, N, SSD_CHUNK, bf16, groups=G)
+    out["ssd_scan"] = dict(
+        shape=[1, S, Hs, P], N=N, groups=G, chunk=SSD_CHUNK,
+        max_abs_err=err, wrong_groups_err=wrong,
+        ctas=scan_plan(S, SSD_CHUNK, P, N).ctas(1, Hs, P, N, G),
+        ptxas=[ptxas_usage("ssd_scan", k, f"Li{P}E") for k in
+               ("ssd_chunk_kernel", "ssd_out_kernel")]
+        + [ptxas_usage("ssd_scan", "ssd_state_kernel")],
+        **timings(kern, plain, None, iters=30),
+        device_ms_by_pass=device_ms_by_kernel(
+            kern, KERNEL_CLASSES["ssd_scan"][1:]),
+        library="none: no PyTorch call computes SSD",
+        bound_ms=b_ms, bound_by=b_by)
     return out
 
 
@@ -1276,8 +1420,10 @@ def step_bytes(cfg, params, prog, slots: int, max_seq: int) -> tuple:
     if not cfg.tie_embeddings and "embed" in params:
         embed = params["embed"]["tok"]
         weights -= embed.numel() * embed.element_size()
-    if cfg.family == "hybrid":
-        weights += tree_bytes(params["shared"]) * (hybrid_groups(cfg) - 1)
+    if cfg.family == "hybrid":      # the published block: M blocks in turn
+        blocks = cfg.num_mem_blocks if cfg.published_hybrid else 1
+        weights += int(tree_bytes(params["shared"])
+                       * (hybrid_groups(cfg) / blocks - 1))
     specs = prog.cache_specs(slots, max_seq)
     state = 2 * sum(specs[k].nbytes for k in ("conv", "state") if k in specs)
     return weights, state
@@ -1507,6 +1653,34 @@ def logits_fp32(prog, params, prompt, arch) -> dict:
     return out
 
 
+# the depth cut whose logits logits_fp32_cut checks: the first layers and
+# the shared-block invocations they hold
+LOGITS_CUTS = {"zamba2-7b-instruct": dict(n_layers=24,
+                                          hybrid_layer_ids=(6, 11, 17, 23))}
+
+
+def logits_fp32_cut(arch: str, prompt) -> dict:
+    """logits_fp32 on ``arch`` at full width cut in depth
+    (``LOGITS_CUTS``), for a model so deep that two bf16 paths of random
+    weights part by more than the 5e-2 gate through rounding alone (the
+    full 81-layer Zamba2-7B's prefill logits: kernel vs plain 5.8e-2 rel
+    RMS, each 7.7-8.0e-2 from fp32, on an H100), which a wrong kernel
+    could then hide under."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.programs import ModelProgram
+
+    cut = LOGITS_CUTS[arch]
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    prog = ModelProgram(cfg)
+    params = prog.init(1, device="cuda", dtype=torch.bfloat16)
+    res = logits_fp32(prog, params, prompt, f"{arch} cut to {cut}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(res, cut=cut)
+
+
 def prompt_logits(prog, params, toks, nxt) -> tuple:
     """(prefill logits of ``toks``, logits of one decode step of ``nxt``
     against that prefill's own cache grown by 32 rows)."""
@@ -1550,8 +1724,9 @@ def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
     """One architecture's serving path at full width (``layers`` cuts the
     depth), from the port's seeded bf16 init: optionally the prefill and
     first decode logits, kernel path against plain path (``logits``:
-    "direct", "fp32" or "rms", see logits_direct, logits_fp32 and
-    logits_rms), and for an moe model the routing of the 128-token
+    "direct", "fp32", "fp32 cut" or "rms", see logits_direct,
+    logits_fp32, logits_fp32_cut and logits_rms), and for an moe model
+    the routing of the 128-token
     prompt (moe_routing); then register (slots 4, max_seq 1024), one
     ``generate`` per prompt (128 and 500 tokens, 32 new), and
     ``n_batched`` requests through one ``ContinuousBatcher``, whose tokens
@@ -1571,6 +1746,8 @@ def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
         res.update(logits_fp32(prog, params, prompts[0], arch))
     elif logits == "rms":
         res.update(logits_rms(prog, params, prompts[0], arch))
+    elif logits == "fp32 cut":
+        res["cut_logits"] = logits_fp32_cut(arch, prompts[0])
     if cfg.moe is not None:
         res["routing"] = moe_routing(prog, params, prompts[0], arch)
     prefill_ms = {}
@@ -3420,12 +3597,68 @@ PATHS = {
     "gemma3-1b": (ATTENTION, 6, "direct", False, None),
     # 28.5 GB of bf16 weights at 4 of its 40 layers
     "dbrx-132b": (ATTENTION, 6, "rms", False, 4),
+    # the published Zamba2 block, all 81 layers (14.7 GB of bf16 weights)
+    "zamba2-7b-instruct": (ATTENTION + ("ssd_scan",), 6, "fp32 cut", True,
+                           None),
 }
+# legs that run alone (``--only NAME``): their kernel rows, then the path
+ONLY = {"zamba2-7b-instruct": zamba2_7b_rows}
 # the families whose inputs hold embeddings: arch -> layers it is cut to
 FRONTENDS = {"internvl2-76b": 8, "musicgen-large": None}
 
 
-def main() -> int:
+def kernel_row(name: str, r: dict, by_path: dict) -> dict:
+    """One entry of the ``kernels`` line: kernel ``name``'s headline row
+    ``r`` and its launches by path."""
+    source, replaces = SOURCES[name]
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        **({"backward_of": name[:-4]} if name.endswith("_bwd") else {}),
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"],
+        **{k: r[k] for k in ("device_ms", "plain_device_ms",
+                             "library_device_ms", "ctas", "splits",
+                             "ptxas") if k in r})
+
+
+def run_only(arch: str) -> int:
+    """``--only ARCH``: the leg's kernel rows (phase 1's, at its shapes)
+    and its serving path (phases 2-4's), nothing else; the ``kernels``
+    line carries the path's launches and the leg's rows."""
+    t0 = time.perf_counter()
+    rows = ONLY[arch]()
+    log_rows(rows)
+    REPORT["kernels"] = rows
+    log(f"[kernels] {arch} rows done in {time.perf_counter() - t0:.1f}s")
+    kernels, n_batched, logits, profile, layers = PATHS[arch]
+    t0 = time.perf_counter()
+    path = phase_lm_path(arch, kernels, n_batched, logits=logits,
+                         profile=profile, layers=layers)
+    path["path_s"] = time.perf_counter() - t0
+    REPORT["paths"] = {arch: path}
+    log(f"[{arch}] path done in {path['path_s']:.1f}s")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    REPORT["card"] = nvidia_smi()
+    with open(os.path.join(ROOT, "chiprun_out",
+                           f"chip_smoke_{arch}.json"), "w") as f:
+        json.dump(REPORT, f, indent=1, default=str)
+    log(json.dumps({"kernels": [
+        kernel_row(name, r, {arch: path["launches"][name]})
+        for name, r in rows.items()]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv: list) -> int:
+    only = argv[1] if argv[:1] == ["--only"] and len(argv) == 2 else None
+    if argv and (only not in ONLY):
+        print(f"usage: chip_smoke.py [--only {{{','.join(ONLY)}}}]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -3445,6 +3678,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {stem}] {line.strip()}")
+    if only:
+        return run_only(only)
 
     t0 = time.perf_counter()
     REPORT["kernels"] = phase_kernels()
@@ -3503,24 +3738,14 @@ def main() -> int:
         json.dump(REPORT, f, indent=1, default=str)
 
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
-        r = REPORT["kernels"][name]
+    for name in SOURCES:
         by_path = {arch: p["launches"][name]
                    for arch, p in REPORT["paths"].items()}
         for path in ("mesh", "platform", "cluster", "gateway", "examples"):
             by_path[path] = REPORT[path]["launches"][name]
         for run in TRAIN_PATHS:
             by_path[f"train {run}"] = REPORT["train"][run]["launches"][name]
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            **({"backward_of": name[:-4]} if name.endswith("_bwd") else {}),
-            launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"],
-            **{k: r[k] for k in ("device_ms", "plain_device_ms",
-                                 "library_device_ms", "ctas", "splits",
-                                 "ptxas") if k in r}))
+        kernels.append(kernel_row(name, REPORT["kernels"][name], by_path))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3531,4 +3756,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--restore-child"]:
         sys.exit(restore_child(sys.argv[2], float(sys.argv[3])))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

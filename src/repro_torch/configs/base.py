@@ -29,7 +29,8 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None          # default d_model // n_heads
-    activation: str = "silu"                # silu | relu2 | gelu
+    activation: str = "silu"                # silu | relu2 | gelu (tanh) |
+                                            # gelu_exact (erf)
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
@@ -45,8 +46,17 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_chunk: int = 256                    # SSD chunk length
+    ssm_groups: int = 1                     # B/C groups (mamba_ngroups)
     # --- hybrid (zamba2-style shared attention) ---
     hybrid_attn_every: Optional[int] = None  # shared attn block every k layers
+    # the published Zamba2 block: before each Mamba layer in
+    # ``hybrid_layer_ids`` one of ``num_mem_blocks`` shared attention+MLP
+    # blocks runs (invocation j takes block j mod num_mem_blocks) on
+    # [hidden ; embeddings], with a rank-``adapter_rank`` adapter on its
+    # MLP's gate/up and a linear of its own per invocation
+    hybrid_layer_ids: Optional[tuple] = None
+    num_mem_blocks: int = 1
+    adapter_rank: int = 0
     # --- modality frontend stub ---
     frontend: Optional[str] = None          # vision | audio
     frontend_tokens: int = 0                # prefix embedding positions (vlm)
@@ -55,7 +65,20 @@ class ArchConfig:
     serve_param_sharding: str = "tp"        # tp | fsdp (big models need fsdp)
     source: str = ""
 
+    def __post_init__(self):
+        # a configuration file gives a list; the config is hashed
+        # (``LMSpec.family_key``), so it keeps a tuple
+        if self.hybrid_layer_ids is not None:
+            object.__setattr__(self, "hybrid_layer_ids",
+                               tuple(int(i) for i in self.hybrid_layer_ids))
+
     # ------------------------------------------------------------------
+    @property
+    def published_hybrid(self) -> bool:
+        """The published Zamba2 block (``hybrid_layer_ids``), not the
+        shared block after every ``hybrid_attn_every`` layers."""
+        return self.family == "hybrid" and self.hybrid_layer_ids is not None
+
     @property
     def resolved_head_dim(self) -> int:
         if self.head_dim is not None:
@@ -98,6 +121,17 @@ class ArchConfig:
             # mamba2 block: in_proj (2*d_inner + 2*groups*N + heads), out_proj
             din, N, H = self.d_inner, self.ssm_state or 128, self.ssm_heads
             per_layer = d * (2 * din + 2 * N + H) + din * d + 2 * d
+        elif self.published_hybrid:
+            din, N, H = self.d_inner, self.ssm_state, self.ssm_heads
+            G, J, F = self.ssm_groups, len(self.hybrid_layer_ids), self.d_ff
+            mamba = d * (2 * din + 2 * G * N + H) + din * d + 3 * H + din \
+                + self.ssm_conv * (din + 2 * G * N) + (din + 2 * G * N) + d
+            attn_in = 2 * d
+            shared = (attn_in * n_q * hd + 2 * attn_in * n_kv * hd
+                      + n_q * hd * d + 3 * d * F + attn_in + d)
+            per_invocation = self.adapter_rank * (d + 2 * F) + d * d
+            return (emb + head + self.n_layers * mamba + d
+                    + self.num_mem_blocks * shared + J * per_invocation)
         elif self.family == "hybrid":
             din, N, H = self.d_inner, self.ssm_state or 64, self.ssm_heads
             mamba = d * (2 * din + 2 * N + H) + din * d + 2 * d
@@ -144,4 +178,11 @@ class ArchConfig:
             kw["sliding_window"] = 8
         if self.hybrid_attn_every is not None:
             kw["hybrid_attn_every"] = 2
+        if self.published_hybrid:
+            # the published block's structure at toy widths: three
+            # invocations over two blocks, two B/C groups, attention over
+            # [hidden ; embeddings] (heads x head dim = 2 d_model)
+            kw.update(n_layers=6, hybrid_layer_ids=(1, 3, 4),
+                      num_mem_blocks=2, adapter_rank=4, ssm_groups=2,
+                      n_heads=4, n_kv_heads=4, head_dim=32)
         return dataclasses.replace(self, **kw)

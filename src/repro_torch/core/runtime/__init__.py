@@ -48,6 +48,21 @@ def _model_program(cfg):
     return ModelProgram(cfg)
 
 
+# the LM slab's leaves by kind, for the ``lm_slab_bytes.<kind>`` counters
+SLAB_KINDS = {"k": "kv", "v": "kv", "state": "ssm_state", "conv": "conv"}
+
+
+def slab_bytes(cache_specs: dict) -> dict:
+    """Bytes of an LM slab by kind (kv, ssm_state, conv), from its leaves'
+    specs; kinds it does not hold are left out."""
+    out: dict = {}
+    for name, spec in cache_specs.items():
+        if name in SLAB_KINDS:
+            kind = SLAB_KINDS[name]
+            out[kind] = out.get(kind, 0) + spec.nbytes
+    return out
+
+
 def registration_budget(spec, prog=None) -> tuple:
     """(registration reservation bytes, one-arena bytes) for a spec. Pass
     ``prog`` when an LMSpec's ModelProgram is already built."""
@@ -275,6 +290,10 @@ class HydraRuntime:
         budget = mem_budget or registration_budget(spec, prog)[0]
         self.budget.reserve(budget)
         fkey = spec.family_key
+        for kind, nbytes in slab_bytes(cache_specs).items():
+            # hydralint: disable=HL004 — a port-only counter: the sim
+            # sizes a slab from the budget, not by kind
+            self.metrics.inc(f"lm_slab_bytes.{kind}", nbytes)
 
         def build():
             # decode + greedy sample over all slots; the cache is updated
@@ -442,11 +461,15 @@ class HydraRuntime:
 
     # ------------------------------------------------------------------
     def stats(self) -> dict:
+        # the pool's stats echo every counter, as the reference's do; the
+        # slab counters describe registrations (in "metrics"), not arenas
+        arena = {k: v for k, v in self.arena_pool.stats().items()
+                 if not k.startswith("lm_slab_bytes.")}
         return {
             "functions": len(self.registry),
             "budget_used": self.budget.used,
             "budget_peak": self.budget.peak,
-            "arena": self.arena_pool.stats(),
+            "arena": arena,
             "exe_cache": self.exe_cache.stats(),
             "metrics": self.metrics.snapshot(),
         }

@@ -138,7 +138,7 @@ STEP_CHILDREN = ("admit", "prefill.forward", "prefill.insert", "readback",
                  "decode.forward", "bookkeeping")
 FORWARD_SPANS = ("prefill.forward", "decode.forward")
 MODEL_SPANS = ("embed", "norm", "mixer", "ffn", "lm_head", "cache_pack",
-               "kernel")
+               "kernel", "shared")
 STEP_SPANS = ("step",) + STEP_CHILDREN + MODEL_SPANS
 # the steps a tracer keeps (the newest): ~700 spans each on a 48-layer
 # model at two admissions a step; a 50 s window of the benchmark holds

@@ -333,6 +333,7 @@ int dispatch_hd(int hd, const DecodeArgs& a, cudaStream_t s) {
     case 64: return dispatch_group<T, 64>(a, s);
     case 80: return dispatch_group<T, 80>(a, s);
     case 128: return dispatch_group<T, 128>(a, s);
+    case 224: return dispatch_group<T, 224>(a, s);
     case 256: return dispatch_group<T, 256>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

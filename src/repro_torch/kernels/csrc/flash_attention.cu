@@ -21,7 +21,8 @@
 //    a ring of 2-4 stages (as many as shared memory holds) with mbarrier
 //    completion. Each tensor map is 5-D over the (B,S,H,hd) tensor through
 //    its strides, with hd cut into panels of the widest swizzle that
-//    divides a row (128 bytes for hd 64/128/256; 32 bytes for hd 80, whose
+//    divides a row (128 bytes for hd 64/128/256; 64 bytes for hd 224, whose
+//    448-byte rows are seven 64-byte panels; 32 bytes for hd 80, whose
 //    160-byte rows fit no 128-byte panel), so one layout and one
 //    descriptor form serve every head dim and no transposed copy is made.
 //    TMA fills zeros past S and past hd, which pads hd 8 to wgmma's depth
@@ -547,6 +548,7 @@ extern "C" int hydra_flash_attention(
     HYDRA_FLASH_HD(64)
     HYDRA_FLASH_HD(80)
     HYDRA_FLASH_HD(128)
+    HYDRA_FLASH_HD(224)
     HYDRA_FLASH_HD(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);

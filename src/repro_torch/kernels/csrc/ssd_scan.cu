@@ -1,9 +1,9 @@
 // Mamba2 SSD chunked scan (state-space duality) with the final state.
-// x (B,S,H,P) and the single-group Bm/Cm (B,S,N), all in one dtype, and dt
-// (B,S,H) fp32 are read in place through their strides (the last dim is
+// x (B,S,H,P) and Bm/Cm (B,S,G,N) with G B/C groups, all in one dtype, and
+// dt (B,S,H) fp32 are read in place through their strides (the last dim is
 // unit stride: on the serving path x, Bm and Cm are column slices of one
-// projection); A (H,) fp32; y (B,S,H,P) in x's dtype; optional init and
-// final states (B,H,P,N) fp32, contiguous.
+// projection); head h reads group h / (H / G); A (H,) fp32; y (B,S,H,P) in
+// x's dtype; optional init and final states (B,H,P,N) fp32, contiguous.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssd_scan.py (ssd_scan/
 // _kernel). The TPU kernel walks a sequential grid axis over the chunks
@@ -22,9 +22,10 @@
 //
 // bf16 (the serving path) runs three kernels, the chunked algorithm of
 // arXiv:2405.21060 section 7, on the tensor cores:
-//   A  ssd_chunk_kernel, grid (chunk, C B^T tile or (head, 64 state
-//      columns), row): C B^T of each lower-triangular 64 x 64 tile of the
-//      chunk, once per (row, chunk) since it does not depend on the head;
+//   A  ssd_chunk_kernel, grid (chunk, (group, C B^T tile) or (head, 64
+//      state columns), row): C B^T of each lower-triangular 64 x 64 tile of
+//      the chunk, once per (row, chunk, group) since it does not depend on
+//      the head within a group;
 //      and per head a_cs (a parallel fp64 scan) and the chunk state S_c,
 //      its x and B tiles double-buffered by cp.async.
 //   B  ssd_state_kernel, grid (P*N / 1024, head, row): the recurrence over
@@ -50,8 +51,8 @@
 // fp32 state entering the chunk, dt exp(a_cs[-1] - a_cs) B) is split into
 // bf16 hi + lo and takes two products: about 16 significant bits.
 // Workspaces (fp32, from the wrapper, laid out by kernels/ssd_scan.py's
-// ScanPlan): C B^T tiles (B, chunks, tiles, 64, 64), a_cs (B, chunks, H,
-// chunk), states (B, chunks, H, P, N).
+// ScanPlan): C B^T tiles (B, chunks, G, tiles, 64, 64), a_cs (B, chunks,
+// H, chunk), states (B, chunks, H, P, N).
 //
 // fp32 keeps the first design, ssd_scan_kernel: one block per (head,
 // row) walks the chunks in order with the state in shared memory, every
@@ -85,7 +86,14 @@ struct SsdArgs {
   long long y_sb, y_ss, y_sh;
   float* save_acs;      // fp32 kernel: null, or a_cs and the state entering
   float* save_st;       // each chunk for the backward (bf16: its workspaces)
+  int ngrp;             // B/C groups: head h reads group h / (H / ngrp)
+  long long b_sg, c_sg; // the groups' strides
 };
+
+// The B/C group head h reads.
+__device__ __forceinline__ int group_of(const SsdArgs& a, int h) {
+  return h / (a.H / a.ngrp);
+}
 
 // ---------------------------------------------------------------------------
 // bf16: the chunk-parallel tensor-core kernels
@@ -98,7 +106,7 @@ constexpr int kNB = 64;               // state columns (n) of one pass-A CTA
 constexpr int kStateThreads = 256;    // pass B
 
 struct SsdWork {
-  float* cb;    // (B, nc, ntri, kT, kT) C B^T tiles, row-major (l, s)
+  float* cb;    // (B, nc, G, ntri, kT, kT) C B^T tiles, row-major (l, s)
   float* acs;   // (B, nc, H, chunk) a_cs
   float* st;    // (B, nc, H, P, N) S_c, then the state entering chunk c
   int nc;       // chunks
@@ -138,10 +146,13 @@ __device__ __forceinline__ void tile_to_smem(bf16* dst, int pitch, const bf16* s
   }
 }
 
-// Pass A, C B^T part: tile `tri` = lt (lt + 1) / 2 + st of chunk c, the
-// product of C rows [64 lt, +64) and B rows [64 st, +64) over N.
+// Pass A, C B^T part: block `gt` = grp * ntri + tri, tile tri = lt (lt +
+// 1) / 2 + st of chunk c in group grp, the product of C rows [64 lt, +64)
+// and B rows [64 st, +64) over N.
 __device__ void cb_tile(const SsdArgs& a, const SsdWork& w, int b, int c,
-                        long long c0, int Lc, int tri, unsigned char* smem) {
+                        long long c0, int Lc, int gt, unsigned char* smem) {
+  const int grp = gt / w.ntri;
+  int tri = gt - grp * w.ntri;
   const int tile = tri;
   int lt = 0;
   while (tri > lt) {
@@ -154,10 +165,10 @@ __device__ void cb_tile(const SsdArgs& a, const SsdWork& w, int b, int c,
   bf16* Cs = reinterpret_cast<bf16*>(smem);
   bf16* Bs = Cs + kT * pitch;
   tile_to_smem(Cs, pitch,
-               static_cast<const bf16*>(a.Cm) + b * a.c_sb + (c0 + l0) * a.c_ss,
+               static_cast<const bf16*>(a.Cm) + b * a.c_sb + grp * a.c_sg + (c0 + l0) * a.c_ss,
                a.c_ss, Lc - l0, a.N, w.npad, w.bc_vec);
   tile_to_smem(Bs, pitch,
-               static_cast<const bf16*>(a.Bm) + b * a.b_sb + (c0 + s0) * a.b_ss,
+               static_cast<const bf16*>(a.Bm) + b * a.b_sb + grp * a.b_sg + (c0 + s0) * a.b_ss,
                a.b_ss, Lc - s0, a.N, w.npad, w.bc_vec);
   cp_async_wait_all();
   __syncthreads();
@@ -180,7 +191,8 @@ __device__ void cb_tile(const SsdArgs& a, const SsdWork& w, int b, int c,
       mma_bf16_16816(acc[2 * jp + 1], af, bf[jp][2], bf[jp][3]);
     }
   }
-  float* out = w.cb + ((static_cast<long long>(b) * w.nc + c) * w.ntri + tile) * kT * kT;
+  float* out =
+      w.cb + (((static_cast<long long>(b) * w.nc + c) * a.ngrp + grp) * w.ntri + tile) * kT * kT;
   const int r = warp * 16 + (lane >> 2), col = 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -215,7 +227,8 @@ __device__ void chunk_state(const SsdArgs& a, const SsdWork& w, int b, int c,
   double* part = reinterpret_cast<double*>(fac + a.chunk);  // (kWarps)
 
   const bf16* x = static_cast<const bf16*>(a.x) + b * a.x_sb + h * a.x_sh + c0 * a.x_ss;
-  const bf16* Bm = static_cast<const bf16*>(a.Bm) + b * a.b_sb + c0 * a.b_ss + n0;
+  const bf16* Bm =
+      static_cast<const bf16*>(a.Bm) + b * a.b_sb + group_of(a, h) * a.b_sg + c0 * a.b_ss + n0;
   auto load_tile = [&](int st) {
     const int s0 = st * kT, buf = st & 1;
     tile_to_smem(Xs + buf * kT * xp, xp, x + s0 * a.x_ss, a.x_ss, Lc - s0, P, PP, w.x_vec);
@@ -357,10 +370,11 @@ __global__ void __launch_bounds__(kTC) ssd_chunk_kernel(SsdArgs a, SsdWork w) {
   const int c = blockIdx.x, b = blockIdx.z;
   const long long c0 = static_cast<long long>(c) * a.chunk;
   const int Lc = static_cast<int>(min(static_cast<long long>(a.chunk), a.S - c0));
-  if (static_cast<int>(blockIdx.y) < w.ntri) {
+  const int ncb = w.ntri * a.ngrp;
+  if (static_cast<int>(blockIdx.y) < ncb) {
     cb_tile(a, w, b, c, c0, Lc, blockIdx.y, chunk_smem);
   } else {
-    chunk_state<P>(a, w, b, c, c0, Lc, blockIdx.y - w.ntri, chunk_smem);
+    chunk_state<P>(a, w, b, c, c0, Lc, blockIdx.y - ncb, chunk_smem);
   }
 }
 
@@ -416,7 +430,9 @@ __global__ void __launch_bounds__(kTC) ssd_out_kernel(SsdArgs a, SsdWork w) {
   float* dts = acs + w.nlt * kT;                             // (nlt kT)
 
   const bf16* x = static_cast<const bf16*>(a.x) + b * a.x_sb + h * a.x_sh + c0 * a.x_ss;
-  tile_to_smem(Cs, cp, static_cast<const bf16*>(a.Cm) + b * a.c_sb + (c0 + l0) * a.c_ss,
+  const int grp = group_of(a, h);
+  tile_to_smem(Cs, cp,
+               static_cast<const bf16*>(a.Cm) + b * a.c_sb + grp * a.c_sg + (c0 + l0) * a.c_ss,
                a.c_ss, Lc - l0, a.N, w.npad, w.bc_vec);
   tile_to_smem(Xs, xp, x, a.x_ss, Lc, P, PP, w.x_vec);
   cp_async_commit();
@@ -425,7 +441,7 @@ __global__ void __launch_bounds__(kTC) ssd_out_kernel(SsdArgs a, SsdWork w) {
   // st is used, tile 0's now
   const int g = lane >> 2, t = lane & 3;
   const int ra = (warp * 16 + g) * kT, rb = ra + 8 * kT;
-  const float* cbc = w.cb + ((static_cast<long long>(b) * w.nc + c) * w.ntri +
+  const float* cbc = w.cb + (((static_cast<long long>(b) * w.nc + c) * a.ngrp + grp) * w.ntri +
                              lt * (lt + 1) / 2) * kT * kT;
   float2 q[4][4];
   auto load_cb = [&](int st) {
@@ -626,7 +642,7 @@ int launch_bf16(const SsdArgs& a, const SsdWork& w, int B, cudaStream_t s) {
     err = cudaFuncSetAttribute(ssd_out_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_c));
     if (err != cudaSuccess) return static_cast<int>(err);
-    ssd_chunk_kernel<P><<<dim3(w.nc, w.ntri + a.H * w.nnb, B), kTC, smem_a, s>>>(a, w);
+    ssd_chunk_kernel<P><<<dim3(w.nc, w.ntri * a.ngrp + a.H * w.nnb, B), kTC, smem_a, s>>>(a, w);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -677,8 +693,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(SsdArgs a) {
   const int tid = threadIdx.x;
   const T* x = static_cast<const T*>(a.x) + b * a.x_sb + h * a.x_sh;
   const float* dt = a.dt + b * a.dt_sb + h * a.dt_sh;
-  const T* Bm = static_cast<const T*>(a.Bm) + b * a.b_sb;
-  const T* Cm = static_cast<const T*>(a.Cm) + b * a.c_sb;
+  const T* Bm = static_cast<const T*>(a.Bm) + b * a.b_sb + group_of(a, h) * a.b_sg;
+  const T* Cm = static_cast<const T*>(a.Cm) + b * a.c_sb + group_of(a, h) * a.c_sg;
   T* y = static_cast<T*>(a.y) + b * a.y_sb + h * a.y_sh;
   const float A = a.A[h];
   const long long state_off = (static_cast<long long>(b) * a.H + h) * P * N;
@@ -867,9 +883,10 @@ long long smem_bytes(int P, int N, int chunk) {
 
 }  // namespace
 
-// Strides are in elements. init / final_state may be null. bf16 takes the
-// three fp32 workspaces ws_cb, ws_acs, ws_st sized by kernels/ssd_scan.py's
-// ScanPlan for this (B, S, H, P, N, chunk); fp32 needs none, and given
+// Strides are in elements; G B/C groups (H a multiple of G), b_sg and c_sg
+// their strides. init / final_state may be null. bf16 takes the three fp32
+// workspaces ws_cb, ws_acs, ws_st sized by kernels/ssd_scan.py's ScanPlan
+// for this (B, S, H, P, N, chunk, G); fp32 needs none, and given
 // ws_acs and ws_st it writes a_cs and the state entering each chunk there,
 // in the bf16 layout, for the backward (csrc/ssd_scan_bwd.cu). The wrapper
 // passes the chunk as min(chunk, S), which the reference's dt=0 padding
@@ -881,16 +898,18 @@ extern "C" int hydra_ssd_scan(
     int S, int H, int P, int N, int chunk, long long x_sb, long long x_ss,
     long long x_sh, long long dt_sb, long long dt_ss, long long dt_sh,
     long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-    long long y_sb, long long y_ss, long long y_sh, int dtype, void* stream) {
+    long long y_sb, long long y_ss, long long y_sh, int G, long long b_sg,
+    long long c_sg, int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
-  if (S < 0 || N <= 0 || chunk <= 0 || B > 65535 || H > 65535) {
+  if (S < 0 || N <= 0 || chunk <= 0 || B > 65535 || H > 65535 || G <= 0 ||
+      H % G != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SsdArgs a{x, static_cast<const float*>(dt), static_cast<const float*>(A),
             Bm, Cm, static_cast<const float*>(init), y,
             static_cast<float*>(final_state), S, H, N, chunk,
             x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss,
-            y_sb, y_ss, y_sh, nullptr, nullptr};
+            y_sb, y_ss, y_sh, nullptr, nullptr, G, b_sg, c_sg};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
     if (ws_acs && ws_st) {
@@ -913,12 +932,13 @@ extern "C" int hydra_ssd_scan(
   w.ntri = w.nlt * (w.nlt + 1) / 2;
   w.npad = (N + 15) / 16 * 16;
   w.nnb = (w.npad + kNB - 1) / kNB;
-  if (w.ntri + static_cast<long long>(H) * w.nnb > 65535) {
+  if (static_cast<long long>(w.ntri) * G + static_cast<long long>(H) * w.nnb > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   w.x_vec = aligned(x) && x_sb % 8 == 0 && x_ss % 8 == 0 && x_sh % 8 == 0;
   w.bc_vec = aligned(Bm) && aligned(Cm) && N % 8 == 0 && b_sb % 8 == 0 &&
-             b_ss % 8 == 0 && c_sb % 8 == 0 && c_ss % 8 == 0;
+             b_ss % 8 == 0 && c_sb % 8 == 0 && c_ss % 8 == 0 &&
+             (G == 1 || (b_sg % 8 == 0 && c_sg % 8 == 0));
   return dispatch_bf16(P, a, w, B, s);
 }

@@ -42,7 +42,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_window
 from repro_torch.kernels.ref import decode_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 224, 256)
 MAX_GROUP = 16             # query heads per KV head in one block
 TARGET_SPLITS = 32         # splits per (row, KV head) the plan aims at
 MIN_CHUNK = 16             # cache rows per split, at least

@@ -48,7 +48,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
-HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 224, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_BWD_GROUP = 8      # the portable thread block cluster size
 _LL = ctypes.c_longlong

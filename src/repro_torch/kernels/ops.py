@@ -33,8 +33,9 @@ runs under ``no_grad``/``inference_mode`` and costs one flag read more.
 The CPU route is the plain version under ordinary autograd.
 
 Each entry point is one ``kernel`` span of the serving step track
-(``core/tracing.step_span``), its ``name`` attribute the entry's name;
-with no step recording on the thread it is the shared no-op span.
+(``core/tracing.step_span``), its ``name`` attribute the entry's name
+(the attention entries add ``head_dim``); with no step recording on the
+thread it is the shared no-op span.
 """
 from __future__ import annotations
 
@@ -193,7 +194,8 @@ def rmsnorm(x, w, eps: float = 1e-5):
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
-    with step_span("kernel", "flash_attention"):
+    with step_span("kernel", "flash_attention") as sp:
+        sp.set(head_dim=q.shape[-1])
         if is_dtensor(q):
             k, v = _kv_for_sharded_heads(q, k, v, 2)
             return _on_shards(
@@ -213,7 +215,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window=None,
                      scale=None):
-    with step_span("kernel", "decode_attention"):
+    with step_span("kernel", "decode_attention") as sp:
+        sp.set(head_dim=q.shape[-1])
         if is_dtensor(q):
             k_cache, v_cache = _kv_for_sharded_heads(q, k_cache, v_cache, 1)
             return _on_shards(

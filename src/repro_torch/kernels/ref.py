@@ -141,8 +141,8 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
 def ssd_scan_ref(x: torch.Tensor,        # (B, S, H, P) inputs per head
                  dt: torch.Tensor,       # (B, S, H) softplus'd step sizes
                  A: torch.Tensor,        # (H,) negative decay rates
-                 Bm: torch.Tensor,       # (B, S, N) input matrix, one group
-                 Cm: torch.Tensor,       # (B, S, N) output matrix
+                 Bm: torch.Tensor,       # (B, S, N) or (B, S, G, N) input
+                 Cm: torch.Tensor,       # matrix; output matrix alike
                  *, chunk: int = 64,
                  init_state: torch.Tensor | None = None,   # (B, H, P, N)
                  return_state: bool = False):
@@ -151,18 +151,22 @@ def ssd_scan_ref(x: torch.Tensor,        # (B, S, H, P) inputs per head
     y[t] = C[t] . state[t],  state[t] = exp(dt[t]*A) * state[t-1]
                                         + dt[t] * B[t] (outer) x[t]
 
-    y comes back in x's dtype, the final state (B, H, P, N) in fp32.
+    y comes back in x's dtype, the final state (B, H, P, N) in fp32. With
+    G groups head h reads B and C of group h // (H / G).
     """
     Bsz, S, H, P = x.shape
-    N = Bm.shape[-1]
+    if Bm.dim() == 3:                                   # one group
+        Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+    G, N = Bm.shape[2], Bm.shape[3]
+    J = H // G                                          # heads a group
     if S % chunk:
         # pad with dt=0 tokens: decay exp(0)=1 and contribution dt*Bx=0, so
         # the final state is unchanged and the padded outputs are dropped
         pad = chunk - S % chunk
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
         dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
-        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
-        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, 0, 0, pad))
         out = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                            init_state=init_state, return_state=return_state)
         if return_state:
@@ -173,8 +177,9 @@ def ssd_scan_ref(x: torch.Tensor,        # (B, S, H, P) inputs per head
     f32 = torch.float32
     x_ = x.to(f32).reshape(Bsz, nc, chunk, H, P)
     dt_ = dt.to(f32).reshape(Bsz, nc, chunk, H)
-    B_ = Bm.to(f32).reshape(Bsz, nc, chunk, N)
-    C_ = Cm.to(f32).reshape(Bsz, nc, chunk, N)
+    B_ = Bm.to(f32).reshape(Bsz, nc, chunk, G, N)
+    C_ = Cm.to(f32).reshape(Bsz, nc, chunk, G, N)
+    by_group = lambda t: t.unflatten(2, (G, J))         # (b,c,h,..) heads
 
     a = (dt_ * A.to(f32)).movedim(-1, -2)               # (b,c,h,l) log-decay
     a_cs = _cumsum(a)                                   # (b,c,h,l)
@@ -182,15 +187,19 @@ def ssd_scan_ref(x: torch.Tensor,        # (B, S, H, P) inputs per head
 
     # The products are two-operand einsums, grouped as the Pallas kernel
     # groups them. (Three-operand einsums here were seen to round
-    # differently from one CPU process to the next.)
+    # differently from one CPU process to the next.) B and C are taken
+    # per group and broadcast over the group's heads, never gathered, so
+    # one group runs the products of a (B, S, N) scan.
     # 1. intra-chunk (diagonal block) output: ((C B^T) o L) (dt x)
     L = torch.exp(_segsum(a))                           # (b,c,h,l,s)
-    CB = torch.einsum("bcln,bcsn->bcls", C_, B_)
-    Y_diag = torch.einsum("bchls,bcshp->bclhp", CB[:, :, None] * L, dtx)
+    CB = torch.einsum("bclgn,bcsgn->bcgls", C_, B_)
+    CBL = (CB[:, :, :, None] * by_group(L)).flatten(2, 3)
+    Y_diag = torch.einsum("bchls,bcshp->bclhp", CBL, dtx)
 
     # 2. per-chunk final states: (dt x)^T (B exp(a_cs[-1] - a_cs))
     decay_states = torch.exp(a_cs[..., -1:] - a_cs)     # (b,c,h,l)
-    Bd = B_[:, :, None] * decay_states[..., None]       # (b,c,h,l,n)
+    Bd = (B_.movedim(3, 2)[:, :, :, None]
+          * by_group(decay_states)[..., None]).flatten(2, 3)  # (b,c,h,l,n)
     states = torch.einsum("bchln,bclhp->bchpn", Bd, dtx)
 
     # 3. inter-chunk recurrence, in chunk order
@@ -205,7 +214,8 @@ def ssd_scan_ref(x: torch.Tensor,        # (B, S, H, P) inputs per head
 
     # 4. state -> output contribution: (C state^T) exp(a_cs)
     state_decay = torch.exp(a_cs).movedim(-1, -2)       # (b,c,l,h)
-    Y_off = torch.einsum("bcln,bchpn->bclhp", C_, prev_states) \
+    Y_off = torch.einsum("bclgn,bcgjpn->bclgjp", C_,
+                         by_group(prev_states)).flatten(3, 4) \
         * state_decay[..., None]
 
     y = (Y_diag + Y_off).reshape(Bsz, S, H, P).to(x.dtype)
@@ -237,16 +247,24 @@ def ssd_scan_bwd_ref(dy, x, dt, A, Bm, Cm, *, chunk: int = 64,
 def ssd_decode_ref(x: torch.Tensor,      # (B, H, P) single-token input
                    dt: torch.Tensor,     # (B, H)
                    A: torch.Tensor,      # (H,)
-                   Bm: torch.Tensor,     # (B, N)
-                   Cm: torch.Tensor,     # (B, N)
+                   Bm: torch.Tensor,     # (B, N) or (B, G, N)
+                   Cm: torch.Tensor,     # (B, N) or (B, G, N)
                    state: torch.Tensor):  # (B, H, P, N) fp32
     """Single-token SSD state update and output: (y in x's dtype, the new
     fp32 state). The reference runs this plain version on every backend
-    (it is no Pallas kernel), and so does the port."""
+    (it is no Pallas kernel), and so does the port. With G groups head h
+    reads B and C of group h // (H / G): each (row, group) is a row of the
+    one-group update, so one group runs that update's ops unchanged. No
+    host sync, so a CUDA graph captures it."""
     f32 = torch.float32
-    xf, dtf = x.to(f32), dt.to(f32)
-    decay = torch.exp(dtf * A.to(f32)[None, :])         # (B, H)
-    dBx = torch.einsum("bh,bhp,bn->bhpn", dtf, xf, Bm.to(f32))
-    new_state = state * decay[..., None, None] + dBx
-    y = torch.einsum("bhpn,bn->bhp", new_state, Cm.to(f32))
-    return y.to(x.dtype), new_state
+    Bsz, H, P = x.shape
+    G = Bm.shape[1] if Bm.dim() == 3 else 1
+    # (B, H, ...) -> (B*G, H/G, ...): a row per (row, group)
+    rows = lambda t: t.reshape(Bsz * G, H // G, *t.shape[2:])
+    xf, dtf = rows(x.to(f32)), rows(dt.to(f32))
+    Bf, Cf = (t.to(f32).reshape(Bsz * G, -1) for t in (Bm, Cm))
+    decay = torch.exp(dtf * rows(A.to(f32)[None, :].expand(Bsz, H)))
+    dBx = torch.einsum("bh,bhp,bn->bhpn", dtf, xf, Bf)
+    new_state = rows(state) * decay[..., None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", new_state, Cf)
+    return y.reshape(Bsz, H, P).to(x.dtype), new_state.reshape(state.shape)

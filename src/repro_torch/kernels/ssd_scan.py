@@ -2,9 +2,11 @@
 their wrapper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py`` (``ssd_scan``
-/ ``_kernel``): x (B,S,H,P), dt (B,S,H) fp32, A (H,) fp32 and the
-single-group Bm/Cm (B,S,N) give y (B,S,H,P) in x's dtype and, on request,
-the final state (B,H,P,N) fp32, from ``init_state`` or zeros. A chunk
+/ ``_kernel``): x (B,S,H,P), dt (B,S,H) fp32, A (H,) fp32 and Bm/Cm, one
+B/C group (B,S,N) or G groups (B,S,G,N) whose group g the heads
+[g H/G, (g+1) H/G) read, give y (B,S,H,P) in x's dtype and, on request,
+the final state (B,H,P,N) fp32, from ``init_state`` or zeros. One group
+as (B,S,N) or (B,S,1,N) makes the same launches and results. A chunk
 longer than S is cut to S (``scan_plan``); positions past S act as the
 reference's ``dt=0`` padding, so the scan and the final state are exact.
 
@@ -12,7 +14,7 @@ Bound on the H100: bytes at the serving shapes (x in, y out). bf16, the
 serving path, runs the chunked algorithm in three chunk-parallel kernels
 on the tensor cores (``ScanPlan`` says how they cut the scan): A, per
 (chunk, C Bᵀ tile or head) the lower-triangular C Bᵀ tiles once per
-(row, chunk), a_cs by a parallel fp64 scan and each head's chunk state; B,
+(row, chunk, group), a_cs by a parallel fp64 scan and each head's chunk state; B,
 the state recurrence over the chunks; C, per (64-row tile, chunk, head,
 row) the tile's y. Every fp32 operand of a product is split into bf16 hi +
 lo, so the products keep about 16 bits. fp32 keeps the first design, one
@@ -33,7 +35,7 @@ which kernels run and how they cut it: bf16 a fused pass per (row,
 chunk, head) on the tensor cores in clusters of heads, with U_c and the
 recurrence only where the state is not zero; fp32 seven scalar
 kernels), which has no TPU counterpart: the reference differentiates
-the jnp oracle.
+the jnp oracle. The backward takes one B/C group: with more it raises.
 
 The plain versions are ``kernels/ref.py:ssd_scan_ref`` and
 ``ssd_scan_bwd_ref``; the wrappers take them only for tensors that lie on
@@ -60,7 +62,7 @@ TC_THREADS = 128                   # threads of a tensor-core CTA (4 warps)
 STATE_THREADS = 256                # threads of a pass-B CTA, 4 elements each
 _LL = ctypes.c_longlong
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [_LL] * 13
-             + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int, _LL, _LL, ctypes.c_int, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7 + [_LL] * 13
                  + [ctypes.c_int, ctypes.c_void_p])
 BWD_MAX_N = 128                    # the backward's widest state (N) bucket
@@ -97,28 +99,32 @@ class ScanPlan:
     p_pad: int
     n_blocks: int
 
-    def ctas(self, B: int, H: int, P: int, N: int) -> dict:
+    def ctas(self, B: int, H: int, P: int, N: int, groups: int = 1) -> dict:
         """CTAs launched per pass (C Bᵀ tiles past the last chunk's rows,
         and y tiles past S, return at once)."""
-        return dict(chunk=self.chunks * (self.cb_tiles + H * self.n_blocks)
-                    * B,
+        return dict(chunk=self.chunks * (groups * self.cb_tiles
+                                         + H * self.n_blocks) * B,
                     state=-(-P * N // (4 * STATE_THREADS)) * H * B,
                     out=self.chunks * self.l_tiles * H * B)
 
-    def workspace_shapes(self, B: int, H: int, P: int, N: int) -> dict:
-        """The fp32 workspaces: C Bᵀ tiles (B, chunks, cb_tiles, 64, 64);
+    def workspace_shapes(self, B: int, H: int, P: int, N: int,
+                         groups: int = 1) -> dict:
+        """The fp32 workspaces: C Bᵀ tiles (B, chunks, cb_tiles, 64, 64),
+        with a groups axis after chunks where there is more than one;
         a_cs (B, chunks, H, chunk); the chunk states, which pass B
         overwrites with the states entering each chunk (B, chunks, H, P,
         N)."""
-        return dict(cb=(B, self.chunks, self.cb_tiles, TILE, TILE),
+        lead = (B, self.chunks) + ((groups,) if groups > 1 else ())
+        return dict(cb=lead + (self.cb_tiles, TILE, TILE),
                     acs=(B, self.chunks, H, self.chunk),
                     state=(B, self.chunks, H, P, N))
 
-    def workspace_offsets(self, B: int, H: int, P: int, N: int) -> tuple:
+    def workspace_offsets(self, B: int, H: int, P: int, N: int,
+                          groups: int = 1) -> tuple:
         """(offsets of the three workspaces in one fp32 buffer, each
         aligned to 64 floats; the buffer's length in floats)."""
         offs, end = [], 0
-        for shape in self.workspace_shapes(B, H, P, N).values():
+        for shape in self.workspace_shapes(B, H, P, N, groups).values():
             offs.append(end)
             end += _up(math.prod(shape), 64)
         return tuple(offs), end
@@ -301,7 +307,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 64,
              init_state: torch.Tensor | None = None,
              return_state: bool = False):
-    """-> y (B,S,H,P) [, final_state (B,H,P,N) fp32]."""
+    """-> y (B,S,H,P) [, final_state (B,H,P,N) fp32]. Bm, Cm (B,S,N) or
+    (B,S,G,N)."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state, return_state=return_state)
@@ -313,9 +320,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_scan.launches = 0     # kernel launches since the last reset
 
 
+def groups_of(Bm: torch.Tensor) -> int:
+    """B/C groups of Bm: 1 for (B,S,N), G for (B,S,G,N)."""
+    return Bm.shape[2] if Bm.dim() == 4 else 1
+
+
 def _check(x, dt, A, Bm, Cm, init_state, chunk, what: str) -> None:
     B, S, H, P = x.shape
     N = Bm.shape[-1]
+    G = groups_of(Bm)
     tensors = [x, dt, A, Bm, Cm] + ([init_state] if init_state is not None
                                     else [])
     if not x.is_cuda or any(t.device != x.device for t in tensors):
@@ -327,8 +340,9 @@ def _check(x, dt, A, Bm, Cm, init_state, chunk, what: str) -> None:
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"{what}: dt and A must be fp32, got {dt.dtype}, "
                         f"{A.dtype}")
+    bc = (B, S, N) if Bm.dim() == 3 else (B, S, G, N)
     if tuple(dt.shape) != (B, S, H) or tuple(A.shape) != (H,) \
-            or tuple(Bm.shape) != (B, S, N) or Cm.shape != Bm.shape:
+            or tuple(Bm.shape) != bc or Cm.shape != Bm.shape or H % G:
         raise ValueError(f"{what}: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
                          f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
@@ -352,7 +366,7 @@ def _forward(x, dt, A, Bm, Cm, chunk, init_state, return_state, save):
     workspace that the backward reads."""
     _check(x, dt, A, Bm, Cm, init_state, chunk, "ssd_scan")
     B, S, H, P = x.shape
-    N = Bm.shape[-1]
+    N, G = Bm.shape[-1], groups_of(Bm)
     bf16 = x.dtype == torch.bfloat16
     plan = scan_plan(S, chunk, P, N)
     need = max(plan.smem().values()) if bf16 else \
@@ -368,18 +382,19 @@ def _forward(x, dt, A, Bm, Cm, chunk, init_state, return_state, save):
     ptr = lambda t: t.data_ptr() if t is not None else None
     ws, saved = (None,) * 3, None
     if bf16 or save:
-        offs, floats = plan.workspace_offsets(B, H, P, N)
+        offs, floats = plan.workspace_offsets(B, H, P, N, G)
         buf = torch.empty(floats, dtype=torch.float32, device=x.device)
         ws = tuple(buf.data_ptr() + 4 * o for o in offs)
         if save:
-            shapes = plan.workspace_shapes(B, H, P, N)
+            shapes = plan.workspace_shapes(B, H, P, N, G)
             saved = tuple(buf[o:o + math.prod(shapes[k])].view(shapes[k])
                           for o, k in zip(offs[1:], ("acs", "state")))
     fn = _build.kernel("ssd_scan", "hydra_ssd_scan", _ARGTYPES)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), ptr(init_state), y.data_ptr(), ptr(final), *ws,
              B, S, H, P, N, plan.chunk, *x.stride()[:3], *dt.stride(),
-             *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3],
+             *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3], G,
+             Bm.stride(2) if G > 1 else 0, Cm.stride(2) if G > 1 else 0,
              _build.DTYPES[x.dtype], _build.stream(x))
     _build.check(err, "ssd_scan")
     with _count_lock:
@@ -402,6 +417,10 @@ def ssd_scan_bwd(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
         return ssd_scan_bwd_ref(dy, x, dt, A, Bm, Cm, chunk=chunk,
                                 init_state=init_state, dfinal=dfinal)
     _check(x, dt, A, Bm, Cm, init_state, chunk, "ssd_scan_bwd")
+    if groups_of(Bm) > 1:
+        raise NotImplementedError(
+            f"ssd_scan_bwd: {groups_of(Bm)} B/C groups; the backward kernels "
+            f"take one group (serving takes more, training does not yet)")
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     if N > BWD_MAX_N:

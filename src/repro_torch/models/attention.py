@@ -18,16 +18,19 @@ GLOBAL_WINDOW = 1073741823
 
 
 def init_attention(gen: torch.Generator, cfg, stack: int | None = None,
-                   dtype=torch.float32, device=None):
+                   dtype=torch.float32, device=None, d_in: int | None = None):
+    """q, k, v from ``d_in`` (d_model unless given: the published Zamba2
+    block reads [hidden ; embeddings], 2 d_model), the output to d_model."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    d_in = d if d_in is None else d_in
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     lead = (stack,) if stack else ()
     dev = gen.device if device is None else device
     kw = dict(dtype=dtype, device=dev)
     p = {
-        "wq": dense_init(gen, lead + (d, hq * hd), **kw),
-        "wk": dense_init(gen, lead + (d, hkv * hd), **kw),
-        "wv": dense_init(gen, lead + (d, hkv * hd), **kw),
+        "wq": dense_init(gen, lead + (d_in, hq * hd), **kw),
+        "wk": dense_init(gen, lead + (d_in, hkv * hd), **kw),
+        "wv": dense_init(gen, lead + (d_in, hkv * hd), **kw),
         "wo": dense_init(gen, lead + (hq * hd, d), in_axis=-2, **kw),
     }
     if cfg.qkv_bias:
@@ -57,12 +60,14 @@ def _project_qkv(p, x: torch.Tensor, cfg):
 
 
 def attention_prefill(p, x: torch.Tensor, cfg, positions: torch.Tensor,
-                      window: int | None = None):
-    """Full-sequence attention. Returns (out (B,S,D), (k, v) for the cache)."""
+                      window: int | None = None, scale: float | None = None):
+    """Full-sequence attention; ``scale`` multiplies the scores (hd^-0.5
+    unless given). Returns (out (B,S,D), (k, v) for the cache)."""
     q, k, v = _project_qkv(p, x, cfg)
     q = rotary(q, positions, cfg.rope_theta)
     k = rotary(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              scale=scale)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return shard(out @ p["wo"].to(x.dtype), "batch", None, None), (k, v)
@@ -70,7 +75,8 @@ def attention_prefill(p, x: torch.Tensor, cfg, positions: torch.Tensor,
 
 def attention_decode(p, x1: torch.Tensor, cfg, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor,
-                     window: int | None = None) -> torch.Tensor:
+                     window: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
     """Single-token decode; writes this token's K/V into the caches.
 
     x1: (B, 1, D); k_cache/v_cache: (B, S, Hkv, hd), updated in place;
@@ -94,6 +100,6 @@ def attention_decode(p, x1: torch.Tensor, cfg, k_cache: torch.Tensor,
     v_cache = shard(v_cache, "batch", "kv_seq", "kv_heads", None)
 
     out = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths + 1,
-                               window=window)
+                               window=window, scale=scale)
     out = out.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim)
     return shard(out @ p["wo"].to(x1.dtype), "batch", None, None)

@@ -1,4 +1,6 @@
-"""Feed-forward variants: SwiGLU (silu), GeGLU (gelu), squared-ReLU.
+"""Feed-forward variants: SwiGLU (silu), GeGLU (gelu: tanh GELU, as
+jax.nn.gelu; gelu_exact: erf GELU, as Zamba2's published "gelu"),
+squared-ReLU.
 
 The products are plain ``torch.matmul``, as the reference leaves them to
 XLA."""
@@ -12,7 +14,7 @@ from repro_torch.models.layers import dense_init
 
 
 def is_gated(activation: str) -> bool:
-    return activation in ("silu", "gelu")
+    return activation in ("silu", "gelu", "gelu_exact")
 
 
 def init_mlp(gen: torch.Generator, cfg, stack: int | None = None,
@@ -32,6 +34,8 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
         return F.silu(x)
     if kind == "gelu":
         return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+    if kind == "gelu_exact":
+        return F.gelu(x)
     if kind == "relu2":
         r = F.relu(x)
         return r * r
@@ -47,3 +51,16 @@ def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         h = _act(up, cfg.activation)
     return shard(h @ p["w_down"].to(dt), "batch", None, None)
+
+
+def apply_adapted_mlp(p, x: torch.Tensor, cfg, down: torch.Tensor,
+                      up: torch.Tensor) -> torch.Tensor:
+    """The gated MLP with a low-rank adapter on its gate/up projection, as
+    Zamba2's shared MLP: [gate ; up] = x [W_gate ; W_up] + (x down) up,
+    then act(gate) * up times W_down. x (B, S, D); down (D, r), up (r,
+    2 d_ff)."""
+    dt, f = x.dtype, cfg.d_ff
+    lo = (x @ down.to(dt)) @ up.to(dt)
+    gate = x @ p["w_gate"].to(dt) + lo[..., :f]
+    h = _act(gate, cfg.activation) * (x @ p["w_up"].to(dt) + lo[..., f:])
+    return h @ p["w_down"].to(dt)

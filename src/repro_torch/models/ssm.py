@@ -1,5 +1,8 @@
 """Mamba2 (SSD) block: in_proj -> causal depthwise conv -> chunked SSD scan
--> gated RMSNorm -> out_proj. Single B/C group (n_groups=1).
+-> gated RMSNorm -> out_proj. ``cfg.ssm_groups`` B/C groups (Mamba2's
+n_groups): head h reads group h // (H / G), and the gated norm normalises
+each group's d_inner / G channels on their own, as Zamba2's
+``Zamba2RMSNormGated`` does. One group keeps B and C as (B, S, N).
 
 Decode state per layer: conv window (B, k-1, conv_dim) in the model dtype
 and SSM state (B, H, P, N) fp32. ``mamba_decode`` writes both into the
@@ -16,12 +19,12 @@ from repro_torch.models.layers import dense_init
 
 
 def conv_dim(cfg) -> int:
-    return cfg.d_inner + 2 * cfg.ssm_state
+    return cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
 
 
 def init_mamba(gen: torch.Generator, cfg, stack: int | None = None,
                dtype=torch.float32, device=None):
-    d, din, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    d, din, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
     cd = conv_dim(cfg)
     lead = (stack,) if stack else ()
     dev = gen.device if device is None else device
@@ -29,9 +32,9 @@ def init_mamba(gen: torch.Generator, cfg, stack: int | None = None,
                                        device=dev)
     conv_w = dense_init(gen, lead + (cfg.ssm_conv, cd),
                         device=dev).mul_(0.1).to(dtype)
-    # in_proj -> [z (din), xBC (din + 2N), dt (H)]
+    # in_proj -> [z (din), xBC (din + 2 G N), dt (H)]
     return {
-        "in_proj": dense_init(gen, lead + (d, 2 * din + 2 * N + H),
+        "in_proj": dense_init(gen, lead + (d, din + cd + H),
                               dtype=dtype, device=dev),
         "conv_w": conv_w,
         "conv_b": full((cd,), 0.0),
@@ -56,16 +59,34 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg):
-    din, N = cfg.d_inner, cfg.ssm_state
+    din, cd = cfg.d_inner, conv_dim(cfg)
     z = zxbcdt[..., :din]
-    xbc = zxbcdt[..., din:2 * din + 2 * N]
-    dt = zxbcdt[..., 2 * din + 2 * N:]
+    xbc = zxbcdt[..., din:din + cd]
+    dt = zxbcdt[..., din + cd:]
     return z, xbc, dt
 
 
+def _split_xbc(xbc: torch.Tensor, cfg):
+    """x, B, C: column slices of xbc (views); with G > 1 groups, B and C
+    (..., G, N)."""
+    din, N, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups
+    xin = xbc[..., :din]
+    Bm, Cm = xbc[..., din:din + G * N], xbc[..., din + G * N:]
+    if G > 1:
+        Bm, Cm = Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))
+    return xin, Bm, Cm
+
+
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                eps: float) -> torch.Tensor:
+                eps: float, groups: int = 1) -> torch.Tensor:
     g = y.float() * F.silu(z.float())
+    if groups > 1:     # each group's channels normalised on their own
+        g = g.unflatten(-1, (groups, -1))
+        var = torch.mean(g * g, dim=-1, keepdim=True)
+        g = (g * torch.rsqrt(var + eps)).flatten(-2)
+        return (g * (1.0 + w.float())).to(y.dtype)
+    # one group: the whole of d_inner, the form the training launcher
+    # also runs on a DTensor split over d_inner
     var = torch.mean(g * g, dim=-1, keepdim=True)
     return (g * torch.rsqrt(var + eps) * (1.0 + w.float())).to(y.dtype)
 
@@ -84,14 +105,15 @@ def mamba_prefill(p, x: torch.Tensor, cfg, *, return_state: bool = False):
     z, xbc_pre, dt = _split_proj(zxbcdt, cfg)
     xbc = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"])
     # column slices of xbc: the scan reads them through their strides
-    xin, Bm, Cm = xbc[..., :din], xbc[..., din:din + N], xbc[..., din + N:]
+    xin, Bm, Cm = _split_xbc(xbc, cfg)
     dt, A = _dt_and_A(p, dt)
     xh = xin.reshape(B, S, H, P)
     res = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=min(cfg.ssm_chunk, S),
                        return_state=return_state)
     y, state = res if return_state else (res, None)
     y = y + p["D"].to(dt_)[None, None, :, None] * xh
-    y = _gated_norm(y.reshape(B, S, din), z, p["norm"], cfg.norm_eps)
+    y = _gated_norm(y.reshape(B, S, din), z, p["norm"], cfg.norm_eps,
+                    cfg.ssm_groups)
     out = shard(y @ p["out_proj"].to(dt_), "batch", None, None)
     if not return_state:
         return out, None
@@ -115,11 +137,12 @@ def mamba_decode(p, x1: torch.Tensor, cfg, conv_state: torch.Tensor,
     xbc = F.silu(torch.einsum("bkc,kc->bc", win, p["conv_w"].to(dt_))
                  + p["conv_b"].to(dt_))
     conv_state.copy_(win[:, 1:, :])
-    xin, Bm, Cm = xbc[..., :din], xbc[..., din:din + N], xbc[..., din + N:]
+    xin, Bm, Cm = _split_xbc(xbc, cfg)
     dt, A = _dt_and_A(p, dt)
     xh = xin.reshape(B, H, P)
     y, new_state = ops.ssd_decode(xh, dt, A, Bm, Cm, ssm_state)
     ssm_state.copy_(new_state)
     y = y + p["D"].to(dt_)[None, :, None] * xh
-    y = _gated_norm(y.reshape(B, din), z, p["norm"], cfg.norm_eps)
+    y = _gated_norm(y.reshape(B, din), z, p["norm"], cfg.norm_eps,
+                    cfg.ssm_groups)
     return (y @ p["out_proj"].to(dt_))[:, None, :]

@@ -3,9 +3,22 @@
 dense / moe / vlm / audio -> attention + FFN blocks (moe: the FFN is the
                              routed experts of ``models/moe``)
 ssm                       -> Mamba2 (SSD) blocks
-hybrid                    -> (zamba2) Mamba2 backbone + ONE shared
-                             attention+FFN block applied after every
-                             ``hybrid_attn_every`` Mamba layers
+hybrid                    -> a Mamba2 backbone with shared attention+FFN
+                             blocks, in one of two layouts:
+  ``hybrid_attn_every`` k   ONE shared block applied after every k Mamba
+                             layers, with residual adds (the JAX package's
+                             zamba2 layout);
+  ``hybrid_layer_ids``      the published Zamba2 block: before each Mamba
+                             layer i in the ids, invocation j of
+                             ``num_mem_blocks`` shared blocks (block j mod
+                             M) reads [h ; embeddings] (2 d_model wide):
+                               a = attn(rmsnorm(cat(h, emb)))  scale
+                                   (hd / 2)^-1/2, no residual
+                               m = mlp(rmsnorm(a)) with invocation j's
+                                   adapter on gate/up
+                               t = m W_linear[j]
+                             and the Mamba layer adds t to its input
+                             before its norm: h <- h + Mamba(rmsnorm(h + t))
 
 The vlm family puts its prefix embeddings (a stubbed vision tower's
 ``frontend_tokens`` positions) before the token embeddings when they are
@@ -41,7 +54,10 @@ from repro_torch.models.layers import dense_init, embed_lookup, rmsnorm
 
 
 def hybrid_groups(cfg) -> int:
-    """Applications of the shared block: one after every k Mamba layers."""
+    """Applications of the shared block: one after every k Mamba layers,
+    or one per ``hybrid_layer_ids`` entry (the published block)."""
+    if cfg.published_hybrid:
+        return len(cfg.hybrid_layer_ids)
     k = cfg.hybrid_attn_every
     if cfg.n_layers % k:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
@@ -81,7 +97,20 @@ def init_params(gen: torch.Generator, cfg, dtype=torch.float32,
         else:
             params["layers"]["mlp"] = mlp_mod.init_mlp(gen, cfg, stack=L,
                                                        **kw)
-    if cfg.family == "hybrid":
+    if cfg.published_hybrid:
+        M, J, r = cfg.num_mem_blocks, hybrid_groups(cfg), cfg.adapter_rank
+        params["shared"] = {
+            "ln1": zeros(M, 2 * D),
+            "attn": attn.init_attention(gen, cfg, stack=M, d_in=2 * D, **kw),
+            "ln2": zeros(M, D),
+            "mlp": mlp_mod.init_mlp(gen, cfg, stack=M, **kw),
+        }
+        params["hybrid"] = {
+            "adapter_down": dense_init(gen, (J, D, r), **kw),
+            "adapter_up": dense_init(gen, (J, r, 2 * cfg.d_ff), **kw),
+            "linear": dense_init(gen, (J, D, D), **kw),
+        }
+    elif cfg.family == "hybrid":
         params["shared"] = {
             "ln1": zeros(D),
             "attn": attn.init_attention(gen, cfg, **kw),
@@ -174,6 +203,91 @@ def _shared_after(cfg, i: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the published Zamba2 block (``hybrid_layer_ids``)
+# ---------------------------------------------------------------------------
+def invocations(cfg) -> dict:
+    """{Mamba layer id: the shared-block invocation that runs before it}."""
+    return {i: j for j, i in enumerate(cfg.hybrid_layer_ids)}
+
+
+def shared_scale(cfg) -> float:
+    """Zamba2's attention scale: (hd / 2)^-1/2, the input being twice the
+    hidden width."""
+    return (cfg.resolved_head_dim / 2) ** -0.5
+
+
+def _shared_in(blk, h, emb, cfg) -> torch.Tensor:
+    with step_span("norm"):
+        return rmsnorm(torch.cat([h, emb], dim=-1), blk["ln1"], cfg.norm_eps)
+
+
+def _shared_out(params, blk, a, cfg, j: int) -> torch.Tensor:
+    """The block's MLP on its attention output (no residual), with
+    invocation j's adapter, then invocation j's linear."""
+    with step_span("norm"):
+        an = rmsnorm(a, blk["ln2"], cfg.norm_eps)
+    hy = params["hybrid"]
+    with step_span("ffn"):
+        m = mlp_mod.apply_adapted_mlp(blk["mlp"], an, cfg,
+                                      hy["adapter_down"][j],
+                                      hy["adapter_up"][j])
+        return m @ hy["linear"][j].to(m.dtype)
+
+
+def _shared_prefill(params, cfg, j: int, h, emb, positions) -> tuple:
+    """Invocation j over the whole sequence -> (t (B,S,D), (k, v))."""
+    blk = _layer(params["shared"], j % cfg.num_mem_blocks)
+    with step_span("shared") as sp:
+        sp.set(block=j % cfg.num_mem_blocks, invocation=j)
+        x = _shared_in(blk, h, emb, cfg)
+        with step_span("mixer"):
+            a, kv = attn.attention_prefill(blk["attn"], x, cfg, positions,
+                                           None, scale=shared_scale(cfg))
+        return _shared_out(params, blk, a, cfg, j), kv
+
+
+def _shared_decode(params, cfg, j: int, h, emb, k_cache, v_cache,
+                   lengths) -> torch.Tensor:
+    blk = _layer(params["shared"], j % cfg.num_mem_blocks)
+    with step_span("shared") as sp:
+        sp.set(block=j % cfg.num_mem_blocks, invocation=j)
+        x = _shared_in(blk, h, emb, cfg)
+        with step_span("mixer"):
+            a = attn.attention_decode(blk["attn"], x, cfg, k_cache, v_cache,
+                                      lengths, None,
+                                      scale=shared_scale(cfg))
+        return _shared_out(params, blk, a, cfg, j)
+
+
+def _published_prefill(params, cfg, h, positions, keep: bool) -> tuple:
+    """The published block over the whole sequence -> (h, convs, states,
+    ks, vs); with ``keep`` False no state is returned (the lists stay
+    empty)."""
+    emb, calls = h, invocations(cfg)
+    convs, states, ks, vs = [], [], [], []
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["layers"], i)
+        x = h
+        if i in calls:
+            t, (k, v) = _shared_prefill(params, cfg, calls[i], h, emb,
+                                        positions)
+            x = h + t
+            if keep:
+                ks.append(k.to(h.dtype))
+                vs.append(v.to(h.dtype))
+        with step_span("norm"):
+            hn = rmsnorm(x, p_l["ln1"], cfg.norm_eps)
+        with step_span("mixer"):
+            o, st = ssm_mod.mamba_prefill(p_l["ssm"], hn, cfg,
+                                          return_state=keep)
+            h = h + o
+        if keep:
+            convs.append(st[0])
+            states.append(st[1])
+    return h, convs, states, ks, vs
+
+
+# ---------------------------------------------------------------------------
 # train forward (no cache)
 # ---------------------------------------------------------------------------
 def _save_dots():
@@ -225,6 +339,10 @@ def forward(params, cfg, tokens=None, embeds=None, *, remat=False,
             h = body(h, _layer(params["layers"], i))
         return _unembed(params, cfg, h), aux
 
+    if cfg.published_hybrid:     # serving's model: no remat, no backward
+        h = _published_prefill(params, cfg, h, positions, keep=False)[0]
+        return _unembed(params, cfg, h), aux
+
     if cfg.family == "hybrid":
         k = cfg.hybrid_attn_every
 
@@ -258,14 +376,20 @@ def prefill(params, cfg, tokens=None, embeds=None, *, n_groups: int = 1):
     by family:
     dense, moe, vlm, audio  {k, v: (L,B,S,Hkv,hd), length};
     ssm     {conv: (L,B,k-1,conv_dim), state: (L,B,H,P,N) fp32, length};
-    hybrid  the ssm leaves plus {k, v: (G,B,S,Hkv,hd)}, G = L // k."""
+    hybrid  the ssm leaves plus {k, v: (G,B,S,Hkv,hd)}: G = L // k, one
+            per application of the shared block (``hybrid_attn_every``),
+            or G = len(hybrid_layer_ids), one per invocation (the
+            published block; conv_dim counts both B/C groups)."""
     with step_span("embed"):
         h = shard(_embed(params, cfg, tokens, embeds), "batch", None, None)
     B, S, _ = h.shape
     dt = h.dtype
     positions = torch.arange(S, device=h.device)[None, :]
     cache, ks, vs = {}, [], []
-    if cfg.family not in ("ssm", "hybrid"):
+    if cfg.published_hybrid:
+        h, convs, states, ks, vs = _published_prefill(params, cfg, h,
+                                                      positions, keep=True)
+    elif cfg.family not in ("ssm", "hybrid"):
         for i, window in enumerate(layer_windows(cfg)):
             h, (k, v), _ = _attn_ffn_prefill(_layer(params["layers"], i),
                                              h, cfg, positions, window,
@@ -319,7 +443,22 @@ def decode_step(params, cfg, cache, tokens=None, embeds=None, *,
     with step_span("embed"):
         h = _embed(params, cfg, tokens, embeds)
     lengths = cache["length"]
-    if cfg.family not in ("ssm", "hybrid"):
+    if cfg.published_hybrid:
+        emb, calls = h, invocations(cfg)
+        for i in range(cfg.n_layers):
+            p_l = _layer(params["layers"], i)
+            x = h
+            if i in calls:
+                j = calls[i]
+                x = h + _shared_decode(params, cfg, j, h, emb, cache["k"][j],
+                                       cache["v"][j], lengths)
+            with step_span("norm"):
+                hn = rmsnorm(x, p_l["ln1"], cfg.norm_eps)
+            with step_span("mixer"):
+                h = h + ssm_mod.mamba_decode(p_l["ssm"], hn, cfg,
+                                             cache["conv"][i],
+                                             cache["state"][i])
+    elif cfg.family not in ("ssm", "hybrid"):
         for i, window in enumerate(layer_windows(cfg)):
             h = _attn_ffn_decode(_layer(params["layers"], i), h, cfg,
                                  cache["k"][i], cache["v"][i], lengths,
