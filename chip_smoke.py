@@ -119,9 +119,10 @@ holds the dry-run's roofline to it); any failure exits non-zero.
    on the kernel path within 5e-2 relative RMS of the plain path's.
    Full-width mamba2-780m (48 layers) takes 9 steps with the same gates
    (the loss falling), 48 ``ssd_scan`` and 49 rmsnorm launches per step
-   forward and backward; full-width zamba2-2.7b (54 Mamba2 layers, the
-   shared block applied 9 times) 4 steps with finite losses and 54 scan,
-   73 rmsnorm and 9 flash launches per step each way; each has its last
+   forward and backward, 48 ``mamba_conv`` and ``mamba_gate`` forward;
+   full-width zamba2-2.7b (54 Mamba2 layers, the shared block applied 9
+   times) 4 steps with finite losses and 54 scan, 73 rmsnorm and 9 flash
+   launches per step each way, 54 mixer launches forward; each has its last
    step profiled. Their gradient checks run at batch 2 x seq 512 (two
    scan chunks of 256), mamba2 cut to 4 layers and zamba2 to 6 (one
    application of the shared block). gemma3-1b and granite-moe-1b-a400m
@@ -532,6 +533,10 @@ def phase_kernels() -> dict:
         torch.cuda.empty_cache()
     out["ssd_scan"] = phase_ssd(gen)
     torch.cuda.empty_cache()
+    out.update(mixer_rows(torch.Generator(device="cuda").manual_seed(11),
+                          "mamba2-780m", mixer_widths(
+                              MAMBA["H"], MAMBA["P"], MAMBA["N"], 1),
+                          ZAMBA7["S"]))
     for name, row in zamba2_7b_rows().items():
         out[name]["zamba2-7b"] = row
     out.update(phase_backward(gen))
@@ -1009,7 +1014,116 @@ def zamba2_7b_rows() -> dict:
             kern, KERNEL_CLASSES["ssd_scan"][1:]),
         library="none: no PyTorch call computes SSD",
         bound_ms=b_ms, bound_by=b_by)
+    torch.cuda.empty_cache()
+    out.update(mixer_rows(gen, "zamba2-7b", mixer_widths(Hs, P, N, G), S,
+                          wrong=True))
     return out
+
+
+def mixer_widths(H, P, N, G) -> tuple:
+    """(d_inner, conv_dim, heads, head dim, B/C groups) of a Mamba2 mixer."""
+    return H * P, H * P + 2 * G * N, H, P, G
+
+
+def gate_pieces_per_thread(width: int) -> int:
+    """The 16-byte pieces each thread of ``mamba_gate_kernel`` holds for a
+    bf16 group of ``width`` channels (``csrc/mamba_gate.cu`` launch)."""
+    pieces = width // 8
+    for nv in (1, 2, 4):
+        if ((pieces + nv - 1) // nv + 31) // 32 * 32 <= 256:
+            return nv
+    return 4
+
+
+def mixer_inputs(gen, S, widths, dtype, k=4) -> dict:
+    """One prefill's mixer inputs at ``widths``: z, xbc and dt as column
+    slices of one (1, S, din + cd + H) in_proj output (the served layout),
+    y (1, S, H, P) as the scan gives it, and the layer's parameters."""
+    din, cd, H, P, G = widths
+    zx = randn((1, S, din + cd + H), dtype, gen)
+    rn = lambda *shape: randn(shape, torch.float32, gen)
+    return dict(z=zx[..., :din], xbc=zx[..., din:din + cd],
+                dt=zx[..., din + cd:], y=randn((1, S, H, P), dtype, gen),
+                conv_w=(rn(k, cd) * 0.5).to(dtype),
+                conv_b=(rn(cd) * 0.3).to(dtype),
+                dt_bias=(rn(H) - 2.0).to(dtype),
+                A_log=(rn(H) * 0.5 + 1.0).to(dtype), D=rn(H).to(dtype),
+                norm=(rn(din) * 0.1).to(dtype))
+
+
+def mixer_rows(gen, what: str, widths, S: int, wrong: bool = False) -> dict:
+    """``mamba_conv`` and ``mamba_gate`` at one model's prefill (1, S):
+    each against its plain version in fp32 and bf16, then timed in bf16
+    beside its bound (bytes: each input read once, each output written
+    once; no PyTorch call computes either). With ``wrong`` each is also
+    held to a wrong variant's plain result, which must fail the same
+    tolerance: the conv without its causal shift (taps over rows s .. s +
+    k - 1) and, with more than one group, the B/C groups normalised as
+    one (the groups' y at scales 1 and 4)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_mixer import mamba_conv, mamba_gate
+
+    din, cd, H, P, G = widths
+    for dt in (torch.float32, torch.bfloat16):
+        a = mixer_inputs(gen, S, widths, dt)
+        cargs = (a["xbc"], a["dt"], a["conv_w"], a["conv_b"], a["dt_bias"],
+                 a["A_log"])
+        got, want = mamba_conv(*cargs), ref.mamba_conv_ref(*cargs)
+        conv_err = compare(f"mamba_conv {what} 1,{S},{cd} {dt}", got[0],
+                           want[0], dt)
+        compare(f"mamba_conv {what} dt {dt}", got[1], want[1], torch.float32)
+        compare(f"mamba_conv {what} A {dt}", got[2], want[2], torch.float32)
+        x = got[0][..., :din].unflatten(-1, (H, P))
+        gargs = (a["y"], x, a["D"], a["z"], a["norm"], 1e-5, G)
+        gate_err = compare(f"mamba_gate {what} 1,{S},{H},{P} G={G} {dt}",
+                           mamba_gate(*gargs), ref.mamba_gate_ref(*gargs), dt)
+    out, k = {}, a["conv_w"].shape[0]
+    if wrong:
+        ahead = F.pad(a["xbc"], (0, 0, 0, k - 1))
+        out["wrong_shift_err"] = must_fail(
+            f"mamba_conv {what} against the conv without its causal shift",
+            got[0], F.silu(sum(ahead[:, i:i + S] * a["conv_w"][i]
+                               for i in range(k)) + a["conv_b"]), dt)
+    if wrong and G > 1:
+        y = a["y"].float()
+        y[..., H // G:, :] *= 4.0
+        y = y.to(dt)
+        out["wrong_groups_err"] = must_fail(
+            f"mamba_gate {what} against its groups normalised as one",
+            mamba_gate(y, x, a["D"], a["z"], a["norm"], 1e-5, G),
+            ref.mamba_gate_ref(y, x, a["D"], a["z"], a["norm"], 1e-5, 1), dt)
+    eb = 2                                         # bf16 bytes
+    conv_bytes = (2 * S * cd * eb + S * H * (eb + 4) + k * cd * eb
+                  + cd * eb + 2 * H * eb + H * 4)
+    gate_bytes = 4 * S * din * eb + H * eb + din * eb
+    rows = {}
+    for name, fn, plain, nbytes, ctas, stem, parts, err in [
+            ("mamba_conv", lambda: mamba_conv(*cargs),
+             lambda: ref.mamba_conv_ref(*cargs), conv_bytes,
+             (-(-cd // (8 * 128)) + 1) * -(-S // 8), "mamba_conv",
+             (f"Li8ELi{k}E",), conv_err),
+            ("mamba_gate", lambda: mamba_gate(*gargs),
+             lambda: ref.mamba_gate_ref(*gargs), gate_bytes, S * G,
+             "mamba_gate", (f"S1_Li8ELi{gate_pieces_per_thread(din // G)}E",),
+             gate_err)]:
+        b_ms, b_by = bound(nbytes, 0.0, torch.bfloat16)
+        t = timings(fn, plain, None, iters=30)
+        rows[name] = dict(
+            shape=[1, S, cd] if name == "mamba_conv" else [1, S, H, P],
+            groups=G, max_abs_err=err, ctas=ctas,
+            ptxas=[ptxas_usage(stem, f"{name}_kernel", "13__nv_bfloat16",
+                               *parts)],
+            **t, library="none: no PyTorch call computes it",
+            bound_ms=b_ms, bound_by=b_by,
+            bytes_share_of_peak=(b_ms / t["device_ms"]
+                                 if isinstance(t["device_ms"], float)
+                                 else "not measured"))
+    for name, key in (("mamba_conv", "wrong_shift_err"),
+                      ("mamba_gate", "wrong_groups_err")):
+        if key in out:
+            rows[name][key] = out[key]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1819,11 +1933,11 @@ def phase_lm_path(arch: str, kernels: tuple, n_batched: int, *,
             raise AssertionError(f"{arch}: kernel {name} was never launched "
                                  f"on its serving path")
     n_prefills = len(prompts) + n_batched
-    if "ssd_scan" in kernels and \
-            launches["ssd_scan"] != cfg.n_layers * n_prefills:
-        raise AssertionError(f"{arch}: {launches['ssd_scan']} ssd_scan "
-                             f"launches, want {cfg.n_layers} per prefill x "
-                             f"{n_prefills}")
+    for name in ("ssd_scan", "mamba_conv"):
+        if name in kernels and launches[name] != cfg.n_layers * n_prefills:
+            raise AssertionError(f"{arch}: {launches[name]} {name} "
+                                 f"launches, want {cfg.n_layers} per prefill"
+                                 f" x {n_prefills}")
     log(f"{tag} kernel launches on the serving path: {launches}")
 
     weights, state = step_bytes(cfg, params, prog, 4, 1024)
@@ -1989,6 +2103,8 @@ KERNEL_CLASSES = {   # profiler kernel-name keys of each hand-written kernel
                      "bwd_cb_kernel", "bwd_dstate_kernel", "bwd_grec_kernel",
                      "bwd_s_kernel", "bwd_l_kernel", "bwd_combine_kernel",
                      "bwd_reduce_kernel"),
+    "mamba_conv": ("mamba_conv_kernel",),
+    "mamba_gate": ("mamba_gate_kernel", "mamba_gate_scalar_kernel"),
 }
 
 
@@ -2039,13 +2155,15 @@ def _kernel_counters() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
+    from repro_torch.kernels.mamba_mixer import mamba_conv, mamba_gate
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
             "decode_attention": decode_attention, "ssd_scan": ssd_scan,
             "rmsnorm_bwd": rmsnorm_bwd,
             "flash_attention_bwd": flash_attention_bwd,
-            "ssd_scan_bwd": ssd_scan_bwd}
+            "ssd_scan_bwd": ssd_scan_bwd, "mamba_conv": mamba_conv,
+            "mamba_gate": mamba_gate}
 
 
 # ---------------------------------------------------------------------------
@@ -2132,7 +2250,9 @@ def train_launches(cfg) -> dict:
     once each per norm, attention and scan. dense: two norms per layer and
     the final one, an attention per layer; ssm: a pre-norm per Mamba2
     layer and the final norm, a scan per layer; hybrid: the same plus two
-    norms and one attention per application of the shared block."""
+    norms and one attention per application of the shared block. A Mamba2
+    layer's ``mamba_conv`` and ``mamba_gate`` run forward only (their
+    backward differentiates the plain version)."""
     from repro_torch.models.transformer import hybrid_groups
     L = cfg.n_layers
     if cfg.family == "ssm":
@@ -2142,7 +2262,8 @@ def train_launches(cfg) -> dict:
         want = dict(rmsnorm=L + 2 * G + 1, ssd_scan=L, flash_attention=G)
     else:
         want = dict(rmsnorm=2 * L + 1, flash_attention=L)
-    return {**want, **{f"{k}_bwd": n for k, n in want.items()}}
+    mixer = dict(mamba_conv=L, mamba_gate=L) if "ssd_scan" in want else {}
+    return {**want, **{f"{k}_bwd": n for k, n in want.items()}, **mixer}
 
 
 def train_full_width(arch: str, steps: int, *, micro2: bool,
@@ -3581,25 +3702,31 @@ SOURCES = {
         "src/repro/kernels/flash_attention.py:72"),
     "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                      "src/repro/kernels/ssd_scan.py:67"),
+    # no Pallas kernel either: these replace the Mamba2 mixer's jnp
+    # elementwise chain, which XLA fuses on the TPU
+    "mamba_conv": ("src/repro_torch/kernels/csrc/mamba_conv.cu",
+                   "src/repro/models/ssm.py:38"),
+    "mamba_gate": ("src/repro_torch/kernels/csrc/mamba_gate.cu",
+                   "src/repro/models/ssm.py:55"),
 }
 # the training phase's runs, each with its own launch counters
 TRAIN_PATHS = ("qwen", "mamba2-780m", "zamba2-2.7b", "gemma3-1b",
                "granite-moe-1b-a400m", "drill")
 ATTENTION = ("rmsnorm", "flash_attention", "decode_attention")
+MIXER = ("ssd_scan", "mamba_conv", "mamba_gate")
 # arch -> (kernels its serving path must launch, batched requests,
 #          how its logits are held to the plain path, decode profile,
 #          layers it is cut to or None)
 PATHS = {
     "qwen2.5-3b": (ATTENTION, 6, "direct", True, None),
-    "zamba2-2.7b": (ATTENTION + ("ssd_scan",), 6, "fp32", True, None),
-    "mamba2-780m": (("rmsnorm", "ssd_scan"), 4, None, False, None),
+    "zamba2-2.7b": (ATTENTION + MIXER, 6, "fp32", True, None),
+    "mamba2-780m": (("rmsnorm",) + MIXER, 4, None, False, None),
     "granite-moe-1b-a400m": (ATTENTION, 6, "fp32", True, None),
     "gemma3-1b": (ATTENTION, 6, "direct", False, None),
     # 28.5 GB of bf16 weights at 4 of its 40 layers
     "dbrx-132b": (ATTENTION, 6, "rms", False, 4),
     # the published Zamba2 block, all 81 layers (14.7 GB of bf16 weights)
-    "zamba2-7b-instruct": (ATTENTION + ("ssd_scan",), 6, "fp32 cut", True,
-                           None),
+    "zamba2-7b-instruct": (ATTENTION + MIXER, 6, "fp32 cut", True, None),
 }
 # legs that run alone (``--only NAME``): their kernel rows, then the path
 ONLY = {"zamba2-7b-instruct": zamba2_7b_rows}

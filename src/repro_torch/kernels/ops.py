@@ -18,6 +18,12 @@ the batch or the heads of attention (q, k and v split alike; k and v are
 first repeated to one head per q head when their heads do not split
 over the mesh dim q's do), the batch of ``ssd_scan``. Any other
 placement is redistributed to replicated first.
+``mamba_conv`` and ``mamba_gate`` (the Mamba2 mixer's elementwise chain)
+keep the batch split; the train launcher's split of d_inner is
+redistributed, since a shard cannot compute the one-group norm.
+``mamba_conv``'s A is whole on every shard, so ``A_log`` enters as its
+replicated local tensor, whose gradient is the whole one and not a
+partial sum.
 ``ssd_decode`` is the plain version on every device and in every mode, as
 the reference's is: a single-token state update is no kernel there.
 
@@ -28,8 +34,12 @@ tensor that takes the kernel route goes through the kernel's
 family trains on the card. ``decode_attention`` is serving only (the
 reference never differentiates it) and raises ``NotImplementedError``
 there, so no kernel output silently lacks a gradient (its output is
-written by a ctypes call and carries no ``grad_fn``). The serving path
-runs under ``no_grad``/``inference_mode`` and costs one flag read more.
+written by a ctypes call and carries no ``grad_fn``). ``mamba_conv`` and
+``mamba_gate`` have no backward kernel and no Pallas kernel to mirror
+(the reference trains through their jnp): their Functions run the
+kernel forward and differentiate the plain version, recomputed from the
+saved inputs. The serving path runs under ``no_grad``/``inference_mode``
+and costs one flag read more.
 The CPU route is the plain version under ordinary autograd.
 
 Each entry point is one ``kernel`` span of the serving step track
@@ -47,6 +57,7 @@ from repro_torch.core.tracing import step_span
 from repro_torch.device import is_dtensor
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_mixer as _mixer
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import ssd_scan as _ssd
@@ -91,6 +102,8 @@ _COUNTED = {
     "decode_attention": (_decode.decode_attention, _decode._count_lock),
     "ssd_scan": (_ssd.ssd_scan, _ssd._count_lock),
     "ssd_scan_bwd": (_ssd.ssd_scan_bwd, _ssd._count_lock),
+    "mamba_conv": (_mixer.mamba_conv, _mixer._count_lock),
+    "mamba_gate": (_mixer.mamba_gate, _mixer._count_lock),
 }
 
 
@@ -263,3 +276,50 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=64, init_state=None,
 def ssd_decode(x, dt, A, Bm, Cm, state):
     with step_span("kernel", "ssd_decode"):
         return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, state)
+
+
+def _whole(t):
+    """A DTensor as its replicated local tensor, whose gradient is the
+    whole one; a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(placements=[Replicate()] * t.device_mesh.ndim
+                          ).to_local()
+
+
+def mamba_conv(xbc, dt, w, b, dt_bias, A_log):
+    """(SiLU(causal conv(xbc) + b), softplus(dt + dt_bias) fp32,
+    -exp(A_log) fp32): the prefill's chain before the scan."""
+    with step_span("kernel", "mamba_conv"):
+        if is_dtensor(xbc):
+            A_log = _whole(A_log)
+            return _on_shards(
+                lambda x_, dt_, w_, b_, db_: mamba_conv(x_, dt_, w_, b_, db_,
+                                                        A_log),
+                (xbc, dt, w, b, dt_bias),
+                {"batch": (0, 0, None, None, None)},
+                [{"batch": 0}, {"batch": 0}, {"batch": None}])
+        if _use_kernel(xbc):
+            if _needs_grad(xbc, dt, w, b, dt_bias, A_log):
+                return _mixer.MambaConvFn.apply(xbc, dt, w, b, dt_bias,
+                                                A_log)
+            return _mixer.mamba_conv(xbc, dt, w, b, dt_bias, A_log)
+        return _ref.mamba_conv_ref(xbc, dt, w, b, dt_bias, A_log)
+
+
+def mamba_gate(y, x, D, z, w, eps: float, groups: int = 1):
+    """(y + D x) · SiLU(z), each of ``groups`` groups RMS-normalised,
+    times (1 + w): the chain after the scan, in prefill and decode."""
+    with step_span("kernel", "mamba_gate"):
+        if is_dtensor(y):
+            return _on_shards(
+                lambda y_, x_, D_, z_, w_: mamba_gate(y_, x_, D_, z_, w_, eps,
+                                                      groups),
+                (y, x, D, z, w), {"batch": (0, 0, None, 0, None)},
+                [{"batch": 0}])
+        if _use_kernel(y):
+            if _needs_grad(y, x, D, z, w):
+                return _mixer.MambaGateFn.apply(y, x, D, z, w, eps, groups)
+            return _mixer.mamba_gate(y, x, D, z, w, eps, groups)
+        return _ref.mamba_gate_ref(y, x, D, z, w, eps, groups)

@@ -16,6 +16,7 @@ these, as the reference's training path differentiates its oracles.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -268,3 +269,51 @@ def ssd_decode_ref(x: torch.Tensor,      # (B, H, P) single-token input
     new_state = rows(state) * decay[..., None, None] + dBx
     y = torch.einsum("bhpn,bn->bhp", new_state, Cf)
     return y.reshape(Bsz, H, P).to(x.dtype), new_state.reshape(state.shape)
+
+
+# ---------------------------------------------------------------------------
+# The Mamba2 mixer's elementwise chain around the scan
+# ---------------------------------------------------------------------------
+def causal_conv_ref(xbc: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, xbc (B,S,C), w (k,C), b (C,): k shifted
+    multiply-adds in xbc's dtype, then SiLU, as the reference writes it.
+    (``F.conv1d`` would run fp32 through cuDNN in TF32 on the card and
+    round elsewhere than the reference.)"""
+    k, S = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + S, :] * w[i].to(xbc.dtype) for i in range(k))
+    return F.silu(out + b.to(xbc.dtype))
+
+
+def mamba_conv_ref(xbc: torch.Tensor, dt: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor, dt_bias: torch.Tensor,
+                   A_log: torch.Tensor) -> tuple:
+    """The prefill's conv and the scan's dt and A: (SiLU(conv(xbc) + b)
+    in xbc's dtype, softplus'd dt fp32, A fp32)."""
+    return (causal_conv_ref(xbc, w, b),
+            F.softplus(dt.float() + dt_bias.float()),
+            -torch.exp(A_log.float()))
+
+
+def gated_norm_ref(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                   eps: float, groups: int = 1) -> torch.Tensor:
+    g = y.float() * F.silu(z.float())
+    if groups > 1:     # each group's channels normalised on their own
+        g = g.unflatten(-1, (groups, -1))
+        var = torch.mean(g * g, dim=-1, keepdim=True)
+        g = (g * torch.rsqrt(var + eps)).flatten(-2)
+        return (g * (1.0 + w.float())).to(y.dtype)
+    # one group: the whole of d_inner, the form the training launcher
+    # also runs on a DTensor split over d_inner
+    var = torch.mean(g * g, dim=-1, keepdim=True)
+    return (g * torch.rsqrt(var + eps) * (1.0 + w.float())).to(y.dtype)
+
+
+def mamba_gate_ref(y: torch.Tensor, x: torch.Tensor, D: torch.Tensor,
+                   z: torch.Tensor, w: torch.Tensor, eps: float,
+                   groups: int = 1) -> torch.Tensor:
+    """The D skip and the gated norm: y, x (..., H, P) in the model dtype,
+    D (H,), z (..., H*P) -> (..., H*P) in y's dtype."""
+    y = y + D.to(x.dtype)[:, None] * x
+    return gated_norm_ref(y.flatten(-2), z, w, eps, groups)

@@ -3,6 +3,9 @@
 n_groups): head h reads group h // (H / G), and the gated norm normalises
 each group's d_inner / G channels on their own, as Zamba2's
 ``Zamba2RMSNormGated`` does. One group keeps B and C as (B, S, N).
+The elementwise work around the scan is two ``kernels/ops`` entries:
+``mamba_conv`` (the prefill's conv, SiLU, dt and A) and ``mamba_gate``
+(the D skip and the gated norm, in prefill and decode).
 
 Decode state per layer: conv window (B, k-1, conv_dim) in the model dtype
 and SSM state (B, H, P, N) fp32. ``mamba_decode`` writes both into the
@@ -46,18 +49,6 @@ def init_mamba(gen: torch.Generator, cfg, stack: int | None = None,
     }
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv, xbc (B,S,C), w (k,C), b (C,): k shifted
-    multiply-adds in xbc's dtype, then SiLU, as the reference writes it.
-    (``F.conv1d`` would run fp32 through cuDNN in TF32 on the card and
-    round elsewhere than the reference.)"""
-    k, S = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
-    out = sum(pad[:, i:i + S, :] * w[i].to(xbc.dtype) for i in range(k))
-    return F.silu(out + b.to(xbc.dtype))
-
-
 def _split_proj(zxbcdt: torch.Tensor, cfg):
     din, cd = cfg.d_inner, conv_dim(cfg)
     z = zxbcdt[..., :din]
@@ -77,43 +68,23 @@ def _split_xbc(xbc: torch.Tensor, cfg):
     return xin, Bm, Cm
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                eps: float, groups: int = 1) -> torch.Tensor:
-    g = y.float() * F.silu(z.float())
-    if groups > 1:     # each group's channels normalised on their own
-        g = g.unflatten(-1, (groups, -1))
-        var = torch.mean(g * g, dim=-1, keepdim=True)
-        g = (g * torch.rsqrt(var + eps)).flatten(-2)
-        return (g * (1.0 + w.float())).to(y.dtype)
-    # one group: the whole of d_inner, the form the training launcher
-    # also runs on a DTensor split over d_inner
-    var = torch.mean(g * g, dim=-1, keepdim=True)
-    return (g * torch.rsqrt(var + eps) * (1.0 + w.float())).to(y.dtype)
-
-
-def _dt_and_A(p, dt: torch.Tensor):
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    return dt, -torch.exp(p["A_log"].float())
-
-
 def mamba_prefill(p, x: torch.Tensor, cfg, *, return_state: bool = False):
     """x (B,S,D) -> (out (B,S,D), (conv_state, ssm_state) or None)."""
     B, S, _ = x.shape
-    din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
     dt_ = x.dtype
     zxbcdt = shard(x @ p["in_proj"].to(dt_), "batch", None, "ff")
     z, xbc_pre, dt = _split_proj(zxbcdt, cfg)
-    xbc = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"])
+    xbc, dt, A = ops.mamba_conv(xbc_pre, dt, p["conv_w"], p["conv_b"],
+                                p["dt_bias"], p["A_log"])
     # column slices of xbc: the scan reads them through their strides
     xin, Bm, Cm = _split_xbc(xbc, cfg)
-    dt, A = _dt_and_A(p, dt)
     xh = xin.reshape(B, S, H, P)
     res = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=min(cfg.ssm_chunk, S),
                        return_state=return_state)
     y, state = res if return_state else (res, None)
-    y = y + p["D"].to(dt_)[None, None, :, None] * xh
-    y = _gated_norm(y.reshape(B, S, din), z, p["norm"], cfg.norm_eps,
-                    cfg.ssm_groups)
+    y = ops.mamba_gate(y, xh, p["D"], z, p["norm"], cfg.norm_eps,
+                       cfg.ssm_groups)
     out = shard(y @ p["out_proj"].to(dt_), "batch", None, None)
     if not return_state:
         return out, None
@@ -129,7 +100,7 @@ def mamba_decode(p, x1: torch.Tensor, cfg, conv_state: torch.Tensor,
     (B,H,P,N) fp32 are this layer's cache slices, updated in place.
     Returns out (B,1,D)."""
     B = x1.shape[0]
-    din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
     dt_ = x1.dtype
     z, xbc_pre, dt = _split_proj((x1 @ p["in_proj"].to(dt_))[:, 0], cfg)
     # conv over [conv_state ; xbc_pre]
@@ -138,11 +109,11 @@ def mamba_decode(p, x1: torch.Tensor, cfg, conv_state: torch.Tensor,
                  + p["conv_b"].to(dt_))
     conv_state.copy_(win[:, 1:, :])
     xin, Bm, Cm = _split_xbc(xbc, cfg)
-    dt, A = _dt_and_A(p, dt)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
     xh = xin.reshape(B, H, P)
     y, new_state = ops.ssd_decode(xh, dt, A, Bm, Cm, ssm_state)
     ssm_state.copy_(new_state)
-    y = y + p["D"].to(dt_)[None, :, None] * xh
-    y = _gated_norm(y.reshape(B, din), z, p["norm"], cfg.norm_eps,
-                    cfg.ssm_groups)
+    y = ops.mamba_gate(y, xh, p["D"], z, p["norm"], cfg.norm_eps,
+                       cfg.ssm_groups)
     return (y @ p["out_proj"].to(dt_))[:, None, :]

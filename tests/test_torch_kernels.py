@@ -262,5 +262,6 @@ def test_kernel_sources_present():
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert names == {"rmsnorm.cu", "flash_attention.cu",
                      "decode_attention.cu", "ssd_scan.cu", "rmsnorm_bwd.cu",
-                     "flash_attention_bwd.cu", "ssd_scan_bwd.cu"}
+                     "flash_attention_bwd.cu", "ssd_scan_bwd.cu",
+                     "mamba_conv.cu", "mamba_gate.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -125,7 +125,8 @@ def test_step_track_vocabulary_and_nesting(traced):
         assert "ffn" in names
     kernels = {(a or {}).get("name") for _, sps in steps
                for n, _, _, a in sps if n == "kernel"}
-    assert kernels == ({"rmsnorm", "ssd_scan", "ssd_decode"}
+    assert kernels == ({"rmsnorm", "ssd_scan", "ssd_decode", "mamba_conv",
+                        "mamba_gate"}
                        if arch == "mamba2-780m" else
                        {"rmsnorm", "flash_attention", "decode_attention"})
     for step, sps in steps:
